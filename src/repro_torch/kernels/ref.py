@@ -1,0 +1,59 @@
+"""Plain PyTorch versions of the port's kernels (``repro.kernels.ref``).
+
+Each function here computes what its kernel computes, in the plainest
+tensor code: the CPU path of the kernel wrappers, and the yardstick the
+kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               kv_lens: torch.Tensor, window: int = 0,
+                               softcap: float = 0.0, k_scales=None,
+                               v_scales=None) -> torch.Tensor:
+    """Gather-based paged flash-decoding: the plain version of
+    ``repro_torch.kernels.decode_attention.paged_decode_attention``.
+
+    q (B,H,G,D) one token per sequence; k_pages/v_pages (P,ps,H,D) the
+    shared physical page pool; block_tables (B,max_pages) maps each
+    sequence's logical page j to a physical page id; kv_lens (B,) is the
+    per-sequence token count.  Position j of a sequence is valid when
+    ``j < kv_len`` and, for ``window > 0``, ``j > kv_len - 1 - window``.
+    Fully-masked rows (kv_len == 0, idle batch slots) come out finite.
+    Returns (B,H,G,D) float32.
+
+    ``k_scales``/``v_scales`` (P, ps, H) switch on the int8 page format:
+    pages hold int8 codes, dequantized after the block-table gather.
+    """
+    B, H, G, D = q.shape
+    P, ps, _, _ = k_pages.shape
+    max_pages = block_tables.shape[1]
+    L = max_pages * ps
+    scale = 1.0 / math.sqrt(D)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, L, H, D)
+    v = v_pages[bt].reshape(B, L, H, D)
+    if k_scales is not None:
+        k = k.float() * k_scales[bt].reshape(B, L, H)[..., None]
+    if v_scales is not None:
+        v = v.float() * v_scales[bt].reshape(B, L, H)[..., None]
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    j = torch.arange(L, device=q.device)
+    lens = kv_lens.to(device=q.device, dtype=torch.long)
+    valid = j[None, :] < lens[:, None]
+    if window > 0:
+        valid &= j[None, :] > lens[:, None] - 1 - window
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.float())

@@ -1,0 +1,114 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
+
+The port's counterpart of ``repro.launch.serve --engine continuous``:
+brings up the paged continuous-batching engine on a REDUCED variant of
+the architecture (float32, as the reference serves reduced configs),
+with random weights drawn from a fixed seed, serves a batch of byte-level
+prompts and prints the completions and the throughput report.
+
+It runs on the GPU (``--device cuda``, the default) and raises when no
+GPU is present; ``--device cpu`` runs it on the CPU.  ``--arch tiny`` is
+the benchmark suite's bench-tiny model.  Warm-up training is not ported
+yet, so ``--warmup-steps`` must stay 0.
+
+Examples:
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous
+    python -m repro_torch.launch.serve --arch gemma3-1b --max-running 4 \\
+        --page-size 16 --prefill-chunk 8 --device cpu
+"""
+
+import argparse
+import dataclasses
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--prompt", action="append", default=None)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--engine", choices=("continuous",),
+                    default="continuous",
+                    help="serving engine (the port has the paged "
+                         "continuous-batching engine only)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; no GPU "
+                         "raises instead of falling back to the CPU)")
+    ap.add_argument("--max-running", type=int, default=4,
+                    help="running-batch slots")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV page token slots")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="KV pool pages (default: no-preemption sizing)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prefill at most this many prompt tokens per "
+                         "step (default: one-shot)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable prompt-prefix page sharing")
+    ap.add_argument("--warmup-steps", type=int, default=0,
+                    help="LM warm-up training steps (not ported yet: "
+                         "only 0 is accepted)")
+    args = ap.parse_args(argv)
+    if args.warmup_steps:
+        ap.error("--warmup-steps: training is not ported yet; use 0")
+
+    import torch
+
+    from ..configs import BENCH_TINY, get_config, list_archs
+    from ..data.tokenizer import ByteTokenizer
+    from ..models import build_model, reduced_config
+    from ..serving import (ContinuousServingEngine, Request,
+                           throughput_report)
+    from ..serving.runner import resolve_device
+    from ..serving.sampler import SamplingParams
+
+    device = resolve_device(args.device)
+    if args.arch == "tiny":
+        cfg = BENCH_TINY
+    elif args.arch not in list_archs():
+        ap.error(f"unknown arch; choose 'tiny' or one of {list_archs()}")
+    else:
+        cfg = reduced_config(get_config(args.arch))
+        cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                  vocab_size=max(cfg.vocab_size, 259))
+    model = build_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    tok = ByteTokenizer()
+    print(f"arch={cfg.name} (reduced, {cfg.param_count() / 1e6:.1f}M) "
+          f"on {device}"
+          + (f" ({torch.cuda.get_device_name(device)})"
+             if device.type == "cuda" else ""))
+
+    prompts = args.prompt or ["the scheduler binds", "a numa node",
+                              "the kv cache streams", "one thread gathers"]
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        max_new_tokens=args.max_new)
+    reqs = [Request(uid=i, prompt=tok.encode(p), sampling=sp)
+            for i, p in enumerate(prompts)]
+    max_len = max(len(r.prompt) for r in reqs) + args.max_new + 8
+    eng = ContinuousServingEngine(
+        model, params, max_len=max_len, max_running=args.max_running,
+        page_size=args.page_size, n_pages=args.n_pages,
+        prefill_chunk=args.prefill_chunk,
+        prefix_cache=not args.no_prefix_cache, device=device)
+    comps = eng.generate(reqs)
+    st = eng.pool.stats
+    print(f"kv pool: {st['fresh_pages']} pages allocated, "
+          f"{st['shared_pages']} shared, {st['cow_copies']} CoW, "
+          f"{st['cached_tokens']} prompt tokens served from cache")
+    for c, p in zip(comps, prompts):
+        print(f"[{c.uid}] {p!r} -> {tok.decode(c.tokens)!r}")
+    rep = throughput_report(comps, **eng.last_phase_s)
+    print("throughput:", {k: round(v, 2) if isinstance(v, float) else v
+                          for k, v in rep.items()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

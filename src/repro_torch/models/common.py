@@ -1,0 +1,79 @@
+"""Shared layers: norms, MLP, logits, initializers (``repro.models.common``).
+
+Weight layout convention (as in the reference): every projection is
+stored ``(d_in, d_out)`` and applied as ``x @ w``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------------
+# initializers
+# ----------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: Any, *,
+               device: Any = None, lead: tuple = ()) -> torch.Tensor:
+    """N(0, 1/d_in) weights of shape ``lead + (d_in, d_out)``, drawn in
+    float32 from ``gen`` (which must live on ``device``)."""
+    w = torch.randn(lead + (d_in, d_out), generator=gen, device=device,
+                    dtype=torch.float32)
+    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: Any, *,
+               device: Any = None) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=device,
+                    dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# norms
+# ----------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gain: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with a zero-centred gain.  The normalised x is cast to the
+    working dtype BEFORE the ``(1 + gain)`` product, as the reference
+    does: bf16 rounding depends on that order."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * (1.0 + gain.to(dt))
+
+
+# ----------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------
+
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (the reference's quantized-matmul hook is not ported)."""
+    return x @ w
+
+
+def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu":
+        h = F.silu(proj(x, params["w_gate"])) * proj(x, params["w_up"])
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(proj(x, params["w_up"]), approximate="tanh")
+    return proj(h, params["w_down"])
+
+
+# ----------------------------------------------------------------------
+# logits
+# ----------------------------------------------------------------------
+
+def unembed(embed_or_head: torch.Tensor, x: torch.Tensor, *,
+            tied: bool) -> torch.Tensor:
+    if tied:
+        return x @ embed_or_head.T
+    return x @ embed_or_head

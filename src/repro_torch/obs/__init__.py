@@ -1,0 +1,20 @@
+"""Serving-wide observability (copied from ``repro.obs``; stdlib only).
+
+* :mod:`repro_torch.obs.metrics` — :class:`MetricsRegistry`: counters,
+  gauges and fixed-bucket histograms with labels, JSON snapshot and
+  Prometheus text export; :class:`NullRegistry` is the no-op twin.
+* :mod:`repro_torch.obs.trace` — :class:`RequestTracer`: per-request
+  lifecycle events stamped from the engine's injected clock, exported
+  as JSONL.
+"""
+
+from .metrics import (DEFAULT_BUCKETS_MS, Counter, Gauge, Histogram,
+                      MetricsRegistry, NullRegistry)
+from .trace import (NullTracer, RequestTracer, TraceEvent, load_jsonl,
+                    reconstruct_spans, validate_events)
+
+__all__ = [
+    "Counter", "DEFAULT_BUCKETS_MS", "Gauge", "Histogram",
+    "MetricsRegistry", "NullRegistry", "NullTracer", "RequestTracer",
+    "TraceEvent", "load_jsonl", "reconstruct_spans", "validate_events",
+]

@@ -1,0 +1,484 @@
+"""Single-step engine core of the serving stack (``EngineCore``).
+
+Counterpart of ``repro.serving.core`` on PyTorch: the same scheduler,
+KV-pool and sequence bookkeeping (host code, copied), over the port's
+:class:`~repro_torch.serving.runner.ModelRunner`.  Sampling draws from
+a ``torch.Generator`` seeded from ``seed`` on the runner's device.
+Speculative decoding (``spec_decode > 0``), tensor-parallel serving
+(``mesh=``) and quantized serving (``quant=``) are not ported yet and
+raise ``NotImplementedError``.
+
+Middle of the three-layer split (runner / core / async): one
+:meth:`EngineCore.step` call is exactly one iteration of the old
+monolithic continuous loop — scheduler step, queued copy-on-write page
+copies, prefill chunks, one batched decode, sampling, prefix
+registration and finish bookkeeping — with **no loop, no sleeping and
+no thread** of its own.  Anyone can drive it:
+
+* the synchronous driver (``ContinuousServingEngine.generate``) loops
+  it over a pre-declared arrivals list and must produce byte-identical
+  greedy tokens to the pre-split engine;
+* a live-traffic front end (the reference's ``AsyncEngine``, not
+  ported yet) loops it against a lock-guarded inbox;
+* tests call it step-by-step and assert on the returned
+  :class:`StepResult` without any timing races.
+
+Time is **injected** (:class:`Clock`): the core never calls
+``time.perf_counter`` or ``time.sleep`` directly, so a
+:class:`VirtualClock` lets arrival-staggered tests run without a
+single real sleep (idle waits advance virtual time for free) while the
+default :class:`MonotonicClock` gives production wall-clock stamps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.transformer import Model
+from ..obs.metrics import MetricsRegistry, NullRegistry
+from ..obs.trace import NullTracer, RequestTracer
+from . import faults
+from .engine import Completion, Request
+from .kv_pool import KVCachePool, KVPoolConfig
+from .runner import ModelRunner, _pad_bucket
+from .sampler import sample, sample_grouped
+from .scheduler import ContinuousScheduler, Sequence
+
+
+class Clock:
+    """Injected time source.  ``now()`` is monotonic seconds;
+    ``sleep(dt)`` blocks (or virtually advances) for ``dt`` seconds."""
+
+    def now(self) -> float:
+        raise NotImplementedError
+
+    def sleep(self, dt: float) -> None:
+        raise NotImplementedError
+
+
+class MonotonicClock(Clock):
+    """Real wall time (``time.perf_counter`` / ``time.sleep``)."""
+
+    def now(self) -> float:
+        return time.perf_counter()
+
+    def sleep(self, dt: float) -> None:
+        if dt > 0:
+            time.sleep(dt)
+
+
+class VirtualClock(Clock):
+    """Deterministic test clock: ``sleep`` advances ``now()`` without
+    any wall time passing, so idle engine steps are free and
+    arrival-staggered workloads run as fast as the device allows."""
+
+    def __init__(self, start: float = 0.0) -> None:
+        self.t = start
+        self.slept_s = 0.0
+
+    def now(self) -> float:
+        return self.t
+
+    def sleep(self, dt: float) -> None:
+        if dt > 0:
+            self.t += dt
+            self.slept_s += dt
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+@dataclasses.dataclass
+class StepResult:
+    """What one :meth:`EngineCore.step` did.
+
+    ``emitted`` is every (uid, token) sampled this step in emission
+    order — the async layer's incremental delivery feed.  ``finished``
+    carries completed requests (tokens + timing stamps).  ``idle``
+    means no forward pass ran: the driver may park until the next
+    arrival/submission.
+    """
+
+    finished: List[Completion] = dataclasses.field(default_factory=list)
+    emitted: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    #: uids shed this step because their deadline passed (queued or
+    #: running) — pages/slots already drained; the async layer fails
+    #: the handles with a deadline-exceeded cause
+    expired: List[int] = dataclasses.field(default_factory=list)
+    n_prefills: int = 0
+    n_decodes: int = 0
+
+    @property
+    def idle(self) -> bool:
+        return self.n_prefills == 0 and self.n_decodes == 0
+
+
+class EngineCore:
+    """Scheduler + runner + sequence bookkeeping, one step at a time."""
+
+    def __init__(self, model: Model, params, *, max_len: int = 1024,
+                 max_running: int = 8, page_size: int = 16,
+                 n_pages: Optional[int] = None, n_nodes: int = 1,
+                 numa: bool = True,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 window_override: Optional[int] = None,
+                 mesh=None, policy=None, quant=None,
+                 spec_decode: int = 0,
+                 seed: int = 0, clock: Optional[Clock] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[RequestTracer] = None,
+                 device: str = "cuda") -> None:
+        cfg = model.cfg
+        if spec_decode < 0:
+            raise ValueError("spec_decode must be >= 0")
+        if spec_decode:
+            raise NotImplementedError(
+                "speculative decoding (spec_decode > 0) is not ported yet: "
+                "it needs the batched verify step")
+        if quant is not None:
+            raise NotImplementedError(
+                "quantized serving (quant=) is not ported yet")
+        if mesh is not None or policy is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh=/policy=) is not ported yet")
+        self.model = model
+        self.max_len = max_len
+        self.max_running = max_running
+        self.page_size = page_size
+        if n_pages is None:
+            # page 0 scratch + a full pool: every slot can reach max_len.
+            # Pass a smaller n_pages to trade memory for preemptions.
+            n_pages = 1 + max_running * (-(-max_len // page_size))
+        self.n_pages = n_pages
+        self.clock = clock if clock is not None else MonotonicClock()
+        #: metrics registry every layer below reports into (a private
+        #: real registry by default — pass NullRegistry to disable);
+        #: tracer defaults to the no-op twin (opt in via --trace)
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry())
+        self.tracer = tracer if tracer is not None else NullTracer()
+        n_shards = 1
+        self.pool = KVCachePool(KVPoolConfig(
+            n_pages=n_pages, page_size=page_size, n_layers=cfg.n_layers,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            dtype_bytes=cfg.dtype.itemsize, n_nodes=n_nodes,
+            numa=numa, n_shards=n_shards), prefix_cache=prefix_cache)
+        self.pool.bind_registry(self.registry)
+        self.scheduler = ContinuousScheduler(
+            self.pool, max_running=max_running, max_len=max_len,
+            prefill_chunk=prefill_chunk, spec_lookahead=0,
+            registry=self.registry)
+        self.runner = ModelRunner(
+            model, params, max_running=max_running, max_len=max_len,
+            page_size=page_size, n_pages=n_pages,
+            window_override=window_override, registry=self.registry,
+            clock=self.clock, device=device)
+        self.params = self.runner.params          # on the runner's device
+        #: sampling generator on the runner's device, seeded like the
+        #: reference's ``PRNGKey(seed)`` (different bits, same role)
+        self._gen = torch.Generator(device=self.runner.device)
+        self._gen.manual_seed(seed)
+
+        self._meta: Dict[int, Dict[str, object]] = {}  # uid -> timing stamps
+        self._t_last_decode: Optional[float] = None
+        #: wall gaps between consecutive decode steps since the last
+        #: reset (bench: max gap == worst admission stall)
+        self.decode_gaps_s: List[float] = []
+
+        # instruments resolved ONCE here — step() touches only bound
+        # handles, never the registry (docs/observability.md budget)
+        reg = self.registry
+        self._m_phase_prefill = reg.counter(
+            "serving.phase.prefill_s",
+            "wall seconds spent running prefill chunks (run-scoped)")
+        self._m_phase_decode = reg.counter(
+            "serving.phase.decode_s",
+            "wall seconds spent in batched decode (run-scoped)")
+        self._c_prefill_s = self._m_phase_prefill.labels()
+        self._c_decode_s = self._m_phase_decode.labels()
+        self._m_itl = reg.histogram(
+            "serving.decode.itl_ms",
+            "inter-token latency: wall gap between consecutive decode "
+            "steps (run-scoped)")
+        self._h_itl = self._m_itl.labels()
+        self._h_chunk = reg.histogram(
+            "serving.prefill.chunk_ms",
+            "one prefill chunk end-to-end (dispatch + sample)").labels()
+        self._c_steps = reg.counter(
+            "serving.steps", "engine steps, idle included").labels()
+        self._c_tok_prefill = reg.counter(
+            "serving.tokens.prefill", "prompt tokens prefilled").labels()
+        self._c_tok_decode = reg.counter(
+            "serving.tokens.decode",
+            "tokens sampled by batched decode").labels()
+        self._h_occupancy = reg.histogram(
+            "serving.batch.occupancy",
+            "decode-batch occupancy per decoding step",
+            buckets=tuple(float(i) for i in range(1, max_running + 1)),
+            ).labels()
+        # per-(node, shard) pool gauges, sampled after every step; a
+        # page's bytes are split across every shard's head-slice pool,
+        # so each shard sees the same per-node free count.  Skipped
+        # entirely under NullRegistry (no per-step dict build).
+        self._pool_gauges: List[Tuple[object, int]] = []
+        self._g_retained = None
+        if not isinstance(reg, NullRegistry):
+            g_free = reg.gauge(
+                "kv_pool.pages_free",
+                "allocatable pages on this NUMA node as seen by this "
+                "TP shard's head-slice pool")
+            for node in range(max(self.pool.mm.kv_node_count, 1)):
+                for shard in range(n_shards):
+                    self._pool_gauges.append(
+                        (g_free.labels(node=node, shard=shard), node))
+            self._g_retained = reg.gauge(
+                "kv_pool.pages_retained",
+                "refcount-0 prefix pages parked in the retention LRU",
+                ).labels()
+            # static capacity facts, set once: together they let a
+            # dashboard derive pages-per-byte-budget, the quantity the
+            # int8 KV format (--kv-dtype int8) roughly doubles
+            reg.gauge(
+                "kv_pool.page_bytes",
+                "device bytes per KV page across all layers/heads under "
+                "the configured kv_dtype").labels(
+                    kv_dtype="fp32").set(
+                        float(self.pool.cfg.page_bytes))
+            reg.gauge(
+                "kv_pool.pages_total",
+                "total pages in the pool, scratch page 0 included",
+                ).labels().set(float(n_pages))
+
+    # ------------------------------------------------------------------
+    def _next_key(self) -> torch.Generator:
+        """The sampling generator (the reference splits a new key per
+        call; one generator advancing per draw plays that role)."""
+        return self._gen
+
+    def check_request(self, request: Request) -> None:
+        """Reject a request the engine can never serve.  Both limits
+        are caught HERE, at submit, so an impossible request fails its
+        own handle instead of raising inside the scheduler mid-step
+        (which would kill the async stepper for everyone)."""
+        if len(request.prompt) >= self.max_len:
+            raise ValueError(
+                f"request {request.uid}: prompt of {len(request.prompt)} "
+                f"tokens does not fit max_len={self.max_len} (needs at "
+                "least one decode slot)")
+        need = self.pool.cfg.pages_for(len(request.prompt) + 1)
+        if need > self.pool.cfg.max_pages_per_seq:
+            raise ValueError(
+                f"request {request.uid}: prompt needs {need} pages; "
+                f"pool only has {self.pool.cfg.max_pages_per_seq}")
+
+    @property
+    def phase_s(self) -> Dict[str, float]:
+        """Thin parity view over the registry-backed phase counters
+        (pre-PR6 callers read ``core.phase_s[...]``).  Zeros under a
+        ``NullRegistry``."""
+        return {"prefill_s": self._m_phase_prefill.value(),
+                "decode_s": self._m_phase_decode.value()}
+
+    def reset_run_stats(self) -> None:
+        """Zero the per-run accumulators (phase counters, ITL histogram,
+        decode gaps) so back-to-back driver runs report cleanly.
+        Cumulative series (scheduler, pool, dispatch) keep counting."""
+        self.decode_gaps_s = []
+        self._t_last_decode = None
+        self._m_phase_prefill.reset()
+        self._m_phase_decode.reset()
+        self._m_itl.reset()
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
+
+    # ------------------------------------------------------------------
+    def submit(self, request: Request, *, arrival: float = 0.0,
+               t0: Optional[float] = None) -> Sequence:
+        """Queue a request with the scheduler.  ``arrival`` is on the
+        driver's scheduling timeline (the ``now`` passed to ``step``);
+        ``t0`` is the absolute clock stamp latency is measured from
+        (defaults to the current clock)."""
+        self.check_request(request)
+        seq = self.scheduler.submit(request, arrival=arrival)
+        t0_abs = t0 if t0 is not None else self.clock.now()
+        self._meta[seq.uid] = {"t0": t0_abs, "arrival": arrival}
+        self.tracer.event(seq.uid, "QUEUED", t0_abs,
+                          prompt_len=len(request.prompt))
+        return seq
+
+    def cancel(self, seq: Sequence, *,
+               trace_event: Optional[str] = "CANCELLED") -> bool:
+        """Tear a sequence down wherever it lives (queued, prefilling
+        or decoding): slot and every page reference free immediately.
+        Returns False when it already left the scheduler.
+        ``trace_event`` names the terminal trace event to emit (the
+        async layer passes None when it records FAILED itself)."""
+        out = self.scheduler.cancel(seq)
+        if out and trace_event is not None:
+            self.tracer.event(seq.uid, trace_event, self.clock.now())
+        self._meta.pop(seq.uid, None)
+        return out
+
+    # ------------------------------------------------------------------
+    def _sync_tables(self) -> None:
+        """Host block tables -> device cache array."""
+        bt = np.zeros((self.max_running, self.runner.max_pages), np.int32)
+        for slot, seq in self.scheduler.running.items():
+            pages = self.pool.block_table(seq.uid)
+            bt[slot, :len(pages)] = pages
+        self.runner.set_block_tables(bt)
+
+    def _apply_copies(self) -> None:
+        """Apply the pool's queued copy-on-write page copies to the
+        device cache.  Must run after scheduling and before this step's
+        forwards, so a resumed prefill or decode reads the cloned rows,
+        not scratch."""
+        copies = self.pool.drain_copies()
+        if not copies:
+            return
+        if self.tracer.enabled:
+            # attribute cloned destination pages back to owning uids
+            # (only walks block tables on the rare CoW step)
+            t = self.clock.now()
+            dsts = {d for _, d in copies}
+            for seq in self.scheduler.running.values():
+                n = sum(1 for p in self.pool.block_table(seq.uid)
+                        if p in dsts)
+                if n:
+                    self.tracer.event(seq.uid, "COW", t, pages=n)
+        src, dst = self.pool.copy_row_plan(
+            copies, pad_to_pages=_pad_bucket(len(copies), lo=1))
+        self.runner.apply_copy_rows(src, dst)
+
+    def _finish(self, seq: Sequence) -> Completion:
+        m = self._meta.pop(seq.uid)
+        # t_first_sched lives on the driver's scheduling timeline (the
+        # ``now`` fed to step); both drivers submit with
+        # t0 = clock0 + arrival, so clock0 = t0 - arrival converts it
+        # to the absolute clock the other stamps use
+        if seq.t_first_sched >= 0:
+            t_sched = m["t0"] - m.get("arrival", 0.0) + seq.t_first_sched
+        else:
+            t_sched = m["t0"]
+        self.tracer.event(seq.uid, "FINISHED", m["t1"],
+                          n_tokens=len(seq.generated),
+                          n_preempts=seq.n_preempts)
+        return Completion(
+            uid=seq.uid, prompt_len=len(seq.request.prompt),
+            tokens=list(seq.generated), latency_s=m["t1"] - m["t0"],
+            prefill_s=m.get("prefill", 0.0), t0=m["t0"], t1=m["t1"],
+            t_first=m.get("t_first", m["t1"]), t_sched=t_sched)
+
+    # ------------------------------------------------------------------
+    def step(self, now: float = 0.0) -> StepResult:
+        """One engine step: schedule, apply CoW copies, run prefill
+        chunks, run the batched decode, sample, finish.  ``now`` gates
+        admission of waiting arrivals (driver-relative seconds)."""
+        clock = self.clock
+        tracer = self.tracer
+        if faults.ACTIVE:       # injected worker latency (chaos tests)
+            faults.maybe_sleep("step.latency_ms")
+        self._c_steps.inc()
+        plan = self.scheduler.step(now)
+        for seq in plan.expired:
+            # scheduler already drained slot + pages; surface the death
+            # through the normal terminal vocabulary so trace validation
+            # holds, and let the async layer fail the handle
+            tracer.event(seq.uid, "FAILED", clock.now(),
+                         error="deadline exceeded",
+                         n_tokens=len(seq.generated))
+            self._meta.pop(seq.uid, None)
+        for seq in plan.preempted:
+            tracer.event(seq.uid, "PREEMPTED", clock.now(),
+                         n_preempts=seq.n_preempts)
+            m = self._meta.get(seq.uid)
+            if m is not None:       # next admission re-opens PREFILLING
+                m.pop("state", None)
+        self._apply_copies()
+        res = StepResult(expired=[s.uid for s in plan.expired],
+                         n_prefills=len(plan.prefills),
+                         n_decodes=len(plan.decodes))
+        for seq in plan.finished:
+            res.finished.append(self._finish(seq))
+
+        if plan.prefills:
+            self._sync_tables()
+        for seq in plan.prefills:
+            t0 = clock.now()
+            prompt = seq.full_prompt
+            start = seq.n_prefilled
+            n = self.scheduler.chunk_for(seq)
+            fresh = start == 0 and n == seq.prefill_target
+            m = self._meta[seq.uid]
+            if m.get("state") != "PREFILLING":  # (re-)entered prefill
+                m["state"] = "PREFILLING"
+                tracer.event(seq.uid, "PREFILLING", t0, start=start,
+                             cached=seq.n_cached_tokens)
+            tracer.event(seq.uid, "PREFILL_CHUNK", t0, start=start, n=n)
+            logits = self.runner.prefill_chunk(
+                prompt[start:start + n], slot=seq.slot, start=start,
+                fresh=fresh)
+            seq.n_prefilled += n
+            if not seq.is_prefilling:           # final chunk: sample
+                tok = int(sample(logits, seq.request.sampling,
+                                 self._next_key())[0, 0])
+                seq.generated.append(tok)
+                res.emitted.append((seq.uid, tok))
+                # prompt KV is resident now — index it for reuse
+                self.pool.register_prefix(seq.uid, prompt)
+                m.setdefault("t_first", clock.now())
+                m["state"] = "DECODING"
+                tracer.event(seq.uid, "DECODING", clock.now())
+            dt = clock.now() - t0
+            self._c_prefill_s.inc(dt)
+            self._h_chunk.observe(dt * 1e3)
+            self._c_tok_prefill.inc(n)
+            m["prefill"] = m.get("prefill", 0.0) + dt
+            if not seq.is_prefilling and seq.is_done(self.max_len):
+                m["t1"] = clock.now()
+
+        if plan.decodes:
+            t0 = clock.now()
+            self._sync_tables()
+            pos = np.full((self.max_running,), -1, np.int32)
+            fed = np.zeros((self.max_running, 1), np.int32)
+            # idle lanes borrow a real lane's params so grouping never
+            # depends on dead slots
+            sps = [plan.decodes[0].request.sampling] * self.max_running
+            for seq in plan.decodes:
+                pos[seq.slot] = seq.next_pos - 1      # fed-token position
+                fed[seq.slot, 0] = seq.generated[-1]
+                sps[seq.slot] = seq.request.sampling
+            logits = self.runner.decode(fed, pos)
+            toks = sample_grouped(logits, sps, self._next_key())
+            for seq in plan.decodes:
+                tok = int(toks[seq.slot, 0])
+                seq.generated.append(tok)
+                res.emitted.append((seq.uid, tok))
+                if seq.is_done(self.max_len):
+                    self._meta[seq.uid]["t1"] = clock.now()
+            n_emitted = len(plan.decodes)
+            t1 = clock.now()
+            if self._t_last_decode is not None:
+                gap = t1 - self._t_last_decode
+                self.decode_gaps_s.append(gap)
+                self._h_itl.observe(gap * 1e3)
+            self._t_last_decode = t1
+            self._c_decode_s.inc(t1 - t0)
+            self._c_tok_decode.inc(n_emitted)
+            self._h_occupancy.observe(float(len(plan.decodes)))
+
+        if self._pool_gauges:
+            free = self.pool.free_pages_by_node()
+            for g, node in self._pool_gauges:
+                g.set(free.get(node, 0))
+            self._g_retained.set(self.pool.n_retained())
+
+        return res

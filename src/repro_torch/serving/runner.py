@@ -1,0 +1,159 @@
+"""Device-execution layer of the serving stack (``ModelRunner``).
+
+Counterpart of ``repro.serving.runner``: a :class:`ModelRunner` owns
+everything that touches the device for the paged continuous engine —
+the model parameters, the per-layer paged KV cache, prefill / decode
+calls, block-table upload and the copy-on-write row copier — and knows
+nothing about scheduling, sequences or sampling policy.  The
+:class:`~repro_torch.serving.core.EngineCore` turns scheduler decisions
+into these calls.
+
+Where the reference donates the cache to a jit call and gets new
+buffers back (``donate_argnums``), this runner updates the per-layer
+pool tensors **in place** (``index_copy_``): each step writes only the
+rows it touches, so a step costs O(touched bytes), never O(pool bytes).
+Block tables are copied into one preallocated device tensor.
+
+Prefill chunks are padded to power-of-two buckets as in the reference
+(there they bound XLA recompiles; here they keep the prefill maths —
+and so the logits — the reference's).
+
+Not ported yet (``NotImplementedError``): tensor-parallel serving
+(``mesh=``), quantized serving (``quant=``) and speculative ``verify``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.transformer import Model
+from ..models.weights import params_to
+
+
+def _pad_bucket(n: int, lo: int = 8) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def resolve_device(device: Any) -> torch.device:
+    """``device`` as a torch.device; asking for CUDA without a GPU raises
+    (the port never carries on on the CPU unasked)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was asked for but no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class ModelRunner:
+    """``(device state, chunk/batch) -> logits`` over a paged KV cache.
+    No scheduling knowledge; see module docstring."""
+
+    def __init__(self, model: Model, params: Any, *, max_running: int,
+                 max_len: int, page_size: int, n_pages: int,
+                 window_override: Optional[int] = None,
+                 mesh: Optional[Any] = None, policy: Optional[Any] = None,
+                 quant: Optional[Any] = None,
+                 registry: Optional[Any] = None,
+                 clock: Optional[Any] = None, device: Any = "cuda") -> None:
+        if mesh is not None or policy is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh=/policy=) is not ported yet")
+        if quant is not None:
+            raise NotImplementedError(
+                "quantized serving (quant=) is not ported yet")
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = params_to(params, self.device)
+        self.max_running = max_running
+        self.max_len = max_len
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.max_pages = -(-max_len // page_size)
+        self.window_override = window_override
+        # observability: per-call dispatch time (enqueue-to-return —
+        # device completion is owned by whoever synchronises)
+        self._now = clock.now if clock is not None else time.perf_counter
+        self._h_decode = self._h_prefill = None
+        if registry is not None:
+            self._h_decode = registry.histogram(
+                "runner.decode.dispatch_ms",
+                "batched decode dispatch wall per call").labels(shards="1")
+            self._h_prefill = registry.histogram(
+                "runner.prefill.dispatch_ms",
+                "prefill-chunk dispatch wall per call").labels(shards="1")
+        self.cache = model.init_cache(max_running, max_len,
+                                      page_size=page_size, n_pages=n_pages,
+                                      device=self.device)
+
+    # ------------------------------------------------------------------
+    def verify(self, fed: np.ndarray, pos: np.ndarray,
+               n_fed: np.ndarray) -> torch.Tensor:
+        raise NotImplementedError(
+            "speculative verify (ModelRunner.verify) is not ported yet")
+
+    def set_block_tables(self, tables: np.ndarray) -> None:
+        """Upload the host (max_running, max_pages) block-table array
+        into the cache's device tensor."""
+        self.cache["block_tables"].copy_(torch.from_numpy(
+            np.ascontiguousarray(tables, dtype=np.int32)))
+
+    def apply_copy_rows(self, src: np.ndarray, dst: np.ndarray) -> None:
+        """Apply a ``KVCachePool.copy_row_plan`` to every per-layer
+        buffer, in place: whole-page K/V row copies (the gather copies
+        first, so overlapping plans read the old rows)."""
+        s = torch.from_numpy(np.asarray(src, np.int64)).to(self.device)
+        d = torch.from_numpy(np.asarray(dst, np.int64)).to(self.device)
+        for layer in self.cache["layers"]:
+            for buf in layer["self"].values():
+                buf.index_copy_(0, d, buf.index_select(0, s))
+
+    def prefill_chunk(self, tokens: Sequence[int], *, slot: int,
+                      start: int, fresh: bool) -> torch.Tensor:
+        """Run one prefill chunk (``tokens`` at absolute positions
+        ``[start, start + len)``) into batch slot ``slot``; returns the
+        chunk's last-token logits (1, 1, V).  ``fresh`` selects the
+        one-shot path (nothing resident to attend over)."""
+        n = len(tokens)
+        padded = _pad_bucket(n)
+        toks = np.zeros((1, padded), np.int64)
+        toks[0, :n] = tokens
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        t0 = self._now() if self._h_prefill is not None else 0.0
+        if fresh:
+            logits, _ = self.model.prefill_paged(
+                self.params, batch, self.cache, slot, n,
+                page_size=self.page_size,
+                window_override=self.window_override)
+        else:
+            ctx_pages = min(
+                _pad_bucket(-(-(start + n) // self.page_size), lo=1),
+                self.max_pages)
+            logits, _ = self.model.prefill_paged(
+                self.params, batch, self.cache, slot, n, start=start,
+                ctx_pages=ctx_pages, page_size=self.page_size,
+                window_override=self.window_override)
+        if self._h_prefill is not None:
+            self._h_prefill.observe((self._now() - t0) * 1e3)
+        return logits
+
+    def decode(self, fed: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        """One batched decode step: ``fed`` (max_running, 1) tokens,
+        ``pos`` (max_running,) absolute fed-token positions (-1 = idle
+        slot, masked + scratch-paged).  Returns (max_running, 1, V)."""
+        t0 = self._now() if self._h_decode is not None else 0.0
+        logits, _ = self.model.decode_step(
+            self.params, self.cache,
+            torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
+            torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
+            page_size=self.page_size, window_override=self.window_override)
+        if self._h_decode is not None:
+            self._h_decode.observe((self._now() - t0) * 1e3)
+        return logits
