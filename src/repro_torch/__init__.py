@@ -10,7 +10,8 @@ copied in.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (the tests do).  Asking for CUDA on a machine without a
-GPU raises; nothing falls back to the CPU.  The one hand-written kernel
-of this slice is the paged flash-decoding kernel in ``csrc/`` (bound in
-``repro_torch.kernels.decode_attention``).
+GPU raises; nothing falls back to the CPU.  The hand-written kernels
+live in ``csrc/``: the paged flash-decoding kernel (bf16, f32 and int8
+pages; bound in ``repro_torch.kernels.decode_attention``) and the Q4_0
+GEMM of ``--quant q4`` (bound in ``repro_torch.kernels.q4_gemm``).
 """

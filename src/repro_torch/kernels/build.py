@@ -30,6 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+#: source name -> lock held while that source builds and loads, so two
+#: sources build at once (one nvcc each) and one source builds once
+_name_locks: Dict[str, threading.Lock] = {}
 #: source name -> (loaded library, build record)
 _loaded: Dict[str, Tuple[ctypes.CDLL, Dict[str, object]]] = {}
 
@@ -71,8 +74,11 @@ def build(name: str) -> Tuple[Path, Dict[str, object]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+    Threads loading different sources build them in parallel."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _loaded:
             path, record = build(name)
             _loaded[name] = (ctypes.CDLL(str(path)), record)

@@ -25,6 +25,7 @@ from . import build
 
 KERNEL = "paged_decode_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_HEAD_DIM = 256
 
 
@@ -33,7 +34,7 @@ def _bind() -> ctypes.CDLL:
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, vp,              # tensors
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,      # tensors
                        ci, ci, ci, ci, ci, ci, ci, ci, ci,  # dtypes .. window
                        cf, cf, ci, vp]                      # softcap .. stream
         fn.restype = ci
@@ -46,15 +47,18 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor,
                            block_tables: torch.Tensor,
                            kv_lens: torch.Tensor, window: int = 0, *,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
     """q (B,H,G,D) × page pool k,v (P,ps,H,D) -> out (B,H,G,D) in q.dtype.
 
     ``block_tables`` (B, max_pages) and ``kv_lens`` (B,) are int32
     device tensors; ``window`` (0 = full) and ``softcap`` (0 = off) are
-    host numbers.  q and the pages are each float32 or bfloat16 (the
-    kernel computes in float32 and rounds its result to q.dtype), with
-    ``D <= 256`` and page rows a multiple of 16 bytes.  Lanes with
-    ``kv_len == 0`` come out zero.
+    host numbers.  q is float32 or bfloat16 (the kernel computes in
+    float32 and rounds its result to q.dtype); the pages are float32,
+    bfloat16 or int8, with ``D <= 256`` and page rows a multiple of 16
+    bytes.  Int8 pages need ``k_scales``/``v_scales`` (P, ps, H)
+    float32, one scale per (row, kv head).  Lanes with ``kv_len == 0``
+    come out zero.
     """
     B, H, G, D = q.shape
     P, ps, Hk, Dk = k_pages.shape
@@ -66,9 +70,20 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     ("block_tables", block_tables), ("kv_lens", kv_lens)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if k_pages.dtype not in _DTYPES or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"pages must be float32 or bfloat16 (k "
-                        f"{k_pages.dtype}, v {v_pages.dtype})")
+    if k_pages.dtype not in _PAGE_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"pages must be float32 or bfloat16, or int8 with "
+                        f"scales (k {k_pages.dtype}, v {v_pages.dtype})")
+    int8 = k_pages.dtype == torch.int8
+    if int8 != (k_scales is not None) or int8 != (v_scales is not None):
+        raise ValueError("int8 pages take k_scales and v_scales; float "
+                         "pages take neither")
+    if int8:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if (t.dtype != torch.float32 or t.shape != (P, ps, Hk)
+                    or t.device != dev or not t.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous float32 "
+                                 f"({P}, {ps}, {Hk}) tensor on {dev}, got "
+                                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, not {q.dtype}")
     if v_pages.shape != k_pages.shape or (Hk, Dk) != (H, D):
@@ -98,8 +113,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.paged_decode_attention(
         qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if int8 else None,
+        v_scales.data_ptr() if int8 else None,
         bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], _DTYPES[k_pages.dtype], B, H, G, D, ps, max_pages,
+        _DTYPES[q.dtype], _PAGE_DTYPES[k_pages.dtype], B, H, G, D, ps,
+        max_pages,
         int(window),
         float(softcap), 1.0 / math.sqrt(D), dev.index or 0, stream)
     if err != 0:

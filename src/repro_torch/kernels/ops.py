@@ -12,6 +12,27 @@ import torch
 
 from . import ref as _ref
 from .decode_attention import paged_decode_attention as _paged_kernel
+from .q4_gemm import q4_gemm as _q4_kernel
+
+
+def q4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+              *, impl: str = "auto") -> torch.Tensor:
+    """Quantized matmul: x (M,K) @ W_q4 (K,N) -> (M,N) in ``x.dtype``.
+
+    ``impl``: "auto" launches the CUDA kernel on CUDA tensors and runs
+    the plain version on CPU tensors; "ref" runs the plain version on
+    any device; "kernel" launches the kernel and raises on CPU tensors.
+    The reference returns float32 and its ``make_qmm`` casts the result
+    to ``x.dtype`` at once; the kernel rounds to ``x.dtype`` itself.
+
+    Kernel launches are counted on
+    ``repro_torch.kernels.q4_gemm.q4_gemm.launches``.
+    """
+    if impl not in ("auto", "ref", "kernel"):
+        raise ValueError(f"impl={impl!r}: choose 'auto', 'ref' or 'kernel'")
+    if impl == "ref" or (impl == "auto" and not x.is_cuda):
+        return _ref.q4_gemm_ref(x, packed, scales).to(x.dtype)
+    return _q4_kernel(x, packed, scales)
 
 
 def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -30,9 +51,8 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     head h reads kv head h // G.
 
     ``k_scale``/``v_scale`` ((n_pages*page_size, Hkv) f32) select the
-    int8 page format.  Only the plain version reads it, so CPU tensors
-    only: on CUDA tensors it raises, since the int8 kernel variant is
-    not ported yet.
+    int8 page format; the kernel dequantizes in its tile, the plain
+    version after its block-table gather.
 
     Kernel launches are counted on
     ``repro_torch.kernels.decode_attention.paged_decode_attention.launches``.
@@ -46,21 +66,17 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     k_pages = k_pool.view(n_pages, page_size, Hkv, D)
     v_pages = v_pool.view(n_pages, page_size, Hkv, D)
     qk = q.reshape(B, Hkv, G, D)
+    scales = {}
     if k_scale is not None or v_scale is not None:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "int8 pages: the CUDA kernel variant is not ported yet")
-        out = _ref.paged_decode_attention_ref(
-            qk, k_pages, v_pages, block_tables, kv_lens, window,
-            softcap=softcap,
-            k_scales=k_scale.view(n_pages, page_size, Hkv),
-            v_scales=v_scale.view(n_pages, page_size, Hkv))
-    elif impl == "ref" or not q.is_cuda:
+        scales = {"k_scales": k_scale.view(n_pages, page_size, Hkv),
+                  "v_scales": v_scale.view(n_pages, page_size, Hkv)}
+    if impl == "ref" or not q.is_cuda:
         out = _ref.paged_decode_attention_ref(qk, k_pages, v_pages,
                                               block_tables, kv_lens,
-                                              window, softcap=softcap)
+                                              window, softcap=softcap,
+                                              **scales)
     else:
         out = _paged_kernel(qk, k_pages, v_pages, block_tables, kv_lens,
-                            window, softcap=softcap)
+                            window, softcap=softcap, **scales)
     # a no-op on the kernel's output, which is already in q.dtype
     return out.reshape(B, 1, Hq, D).to(q.dtype)

@@ -11,7 +11,16 @@ import math
 
 import torch
 
+from ..quant.q4_0 import dequantize
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def q4_gemm_ref(x: torch.Tensor, packed: torch.Tensor,
+                scales: torch.Tensor) -> torch.Tensor:
+    """x (M,K) @ dequant(packed, scales) (K,N) -> (M,N) float32: the
+    plain version of ``repro_torch.kernels.q4_gemm.q4_gemm``."""
+    return x.float() @ dequantize(packed, scales, dtype=torch.float32)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -11,8 +11,14 @@ GPU is present; ``--device cpu`` runs it on the CPU.  ``--arch tiny`` is
 the benchmark suite's bench-tiny model.  Warm-up training is not ported
 yet, so ``--warmup-steps`` must stay 0.
 
+``--quant q4`` serves Q4_0 attention/MLP projections (the hand-written
+Q4_0 GEMM on the card) and ``--kv-dtype int8`` int8 KV pages with
+per-row scales (the int8 variant of the paged decode kernel).
+
 Examples:
     python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --quant q4 \\
+        --kv-dtype int8
     python -m repro_torch.launch.serve --arch gemma3-1b --max-running 4 \\
         --page-size 16 --prefill-chunk 8 --device cpu
 """
@@ -49,6 +55,14 @@ def main(argv=None) -> int:
                          "step (default: one-shot)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable prompt-prefix page sharing")
+    ap.add_argument("--quant", choices=("none", "q4"), default="none",
+                    help="weight format: 'q4' packs attention/MLP "
+                         "projections to Q4_0 at load")
+    ap.add_argument("--kv-dtype", choices=("fp32", "int8"),
+                    default="fp32",
+                    help="KV page format: 'int8' stores quantized pages "
+                         "with per-row scales ('fp32' keeps the model's "
+                         "dtype)")
     ap.add_argument("--warmup-steps", type=int, default=0,
                     help="LM warm-up training steps (not ported yet: "
                          "only 0 is accepted)")
@@ -61,6 +75,7 @@ def main(argv=None) -> int:
     from ..configs import BENCH_TINY, get_config, list_archs
     from ..data.tokenizer import ByteTokenizer
     from ..models import build_model, reduced_config
+    from ..quant import QuantPolicy
     from ..serving import (ContinuousServingEngine, Request,
                            throughput_report)
     from ..serving.runner import resolve_device
@@ -92,11 +107,15 @@ def main(argv=None) -> int:
     reqs = [Request(uid=i, prompt=tok.encode(p), sampling=sp)
             for i, p in enumerate(prompts)]
     max_len = max(len(r.prompt) for r in reqs) + args.max_new + 8
+    quant = None
+    if args.quant != "none" or args.kv_dtype != "fp32":
+        quant = QuantPolicy(weights=args.quant, kv_dtype=args.kv_dtype)
+        print(f"quant: weights={quant.weights} kv_dtype={quant.kv_dtype}")
     eng = ContinuousServingEngine(
         model, params, max_len=max_len, max_running=args.max_running,
         page_size=args.page_size, n_pages=args.n_pages,
         prefill_chunk=args.prefill_chunk,
-        prefix_cache=not args.no_prefix_cache, device=device)
+        prefix_cache=not args.no_prefix_cache, quant=quant, device=device)
     comps = eng.generate(reqs)
     st = eng.pool.stats
     print(f"kv pool: {st['fresh_pages']} pages allocated, "

@@ -54,18 +54,23 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor,
 # MLP
 # ----------------------------------------------------------------------
 
-def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (the reference's quantized-matmul hook is not ported)."""
-    return x @ w
+def proj(x: torch.Tensor, w: Any, qmm=None) -> torch.Tensor:
+    """``x @ w`` with an optional quantized-matmul hook: the serving
+    runner's Q4_0 mode passes ``qmm`` (``repro_torch.quant.make_qmm``)
+    so a projection leaf may be a packed-code subtree instead of a dense
+    tensor; every other path leaves ``qmm=None``."""
+    return x @ w if qmm is None else qmm(x, w)
 
 
-def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(params: Params, x: torch.Tensor, act: str,
+        qmm=None) -> torch.Tensor:
     if act == "silu":
-        h = F.silu(proj(x, params["w_gate"])) * proj(x, params["w_up"])
+        h = F.silu(proj(x, params["w_gate"], qmm)) \
+            * proj(x, params["w_up"], qmm)
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(proj(x, params["w_up"]), approximate="tanh")
-    return proj(h, params["w_down"])
+        h = F.gelu(proj(x, params["w_up"], qmm), approximate="tanh")
+    return proj(h, params["w_down"], qmm)
 
 
 # ----------------------------------------------------------------------

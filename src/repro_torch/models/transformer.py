@@ -3,7 +3,8 @@
 ``build_model(cfg)`` returns a :class:`Model` exposing
 
     init(gen)                                  -> params
-    init_cache(B, max_len, page_size=...)      -> paged cache (zeros)
+    init_cache(B, max_len, page_size=..., kv_dtype="fp32"|"int8")
+                                               -> paged cache (zeros)
     prefill_paged(params, batch, cache, slot, plen, page_size=...)
                                                -> (logits, cache)
     decode_step(params, cache, tokens, pos, page_size=...)
@@ -25,10 +26,17 @@ page-pool buffers.  Where the reference returns new buffers from a
 donated jit call, this port writes the touched rows **in place**
 (``index_copy_``); the cache dict is returned for API parity.
 
+Quantized serving: ``Model.qmm`` (default ``None``) is the reference's
+quantized-matmul hook.  ``ModelRunner`` installs
+``repro_torch.quant.make_qmm`` there under ``--quant q4``, and every
+attention and MLP projection then goes through it (the Q4_0 kernel on
+the card).  ``init_cache(kv_dtype="int8")`` allocates int8 pages with
+per-(row, kv head) f32 scales (``repro_torch.quant.kv_int8``).
+
 Not part of this slice (each raises ``NotImplementedError`` naming the
 arch or feature): the ring-buffer cache and its ``prefill`` /
 scalar-position ``decode_step``, MoE, recurrent / SSM and cross-attention
-layers, encoder-decoder stacks, int8 KV pages and ``verify_step``.
+layers, encoder-decoder stacks and ``verify_step``.
 """
 
 from __future__ import annotations
@@ -38,8 +46,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..kernels.ops import paged_gqa_decode_attention
+from ..quant.kv_int8 import dequantize_rows, quantize_rows
 from .attention import flash_attention
-from .common import Params, dense_init, embed_init, mlp, rms_norm, unembed
+from .common import (Params, dense_init, embed_init, mlp, proj, rms_norm,
+                     unembed)
 from .config import ModelConfig
 
 ATTN_CHUNK = 512
@@ -99,12 +109,12 @@ def _init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: tuple) -> Params:
 # ----------------------------------------------------------------------
 
 def _project_qkv(cfg: ModelConfig, ap: Params, xq: torch.Tensor,
-                 xkv: torch.Tensor,
+                 xkv: torch.Tensor, qmm=None,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     hd = cfg.resolved_head_dim
-    q = xq @ ap["w_q"]
-    k = xkv @ ap["w_k"]
-    v = xkv @ ap["w_v"]
+    q = proj(xq, ap["w_q"], qmm)
+    k = proj(xkv, ap["w_k"], qmm)
+    v = proj(xkv, ap["w_v"], qmm)
     if cfg.qkv_bias:
         q, k, v = q + ap["b_q"], k + ap["b_k"], v + ap["b_v"]
     Bq, Sq = xq.shape[:2]
@@ -150,57 +160,84 @@ def _paged_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     through the block table after this chunk's write and attends with
     absolute-position causal masking.  Decode (S == 1) writes one row per
     sequence and reads through the block table with the paged kernel.
+
+    An int8 pool (``init_cache(kv_dtype="int8")``) is told by its
+    ``k_scale``/``v_scale`` buffers: fresh rows are quantized per
+    (token, kv head) before the write (codes and scales at the same
+    slots), the resumed-prefill gather dequantizes the context to
+    ``q.dtype``, and decode hands the scales to the paged kernel.  A
+    fresh one-shot prefill still attends over the exact K/V.
     """
     S = q.shape[1]
     ck, cv = cache["k"], cache["v"]
     slots = paged["write_slots"]
+    quantized = "k_scale" in cache
+
+    def write(rows_k: torch.Tensor, rows_v: torch.Tensor) -> None:
+        if not quantized:
+            ck.index_copy_(0, slots, rows_k)
+            cv.index_copy_(0, slots, rows_v)
+            return
+        for name, rows in (("k", rows_k), ("v", rows_v)):
+            codes, scales = quantize_rows(rows)
+            cache[name].index_copy_(0, slots, codes)
+            cache[f"{name}_scale"].index_copy_(0, slots, scales)
+
     if S > 1:                                 # prefill: one sequence
-        ck.index_copy_(0, slots, k[0])
-        cv.index_copy_(0, slots, v[0])
+        write(k[0], v[0])
         ctx = paged.get("prefill_ctx")
         if ctx is not None:
+            phys = ctx["phys"]
+            if quantized:
+                kctx = dequantize_rows(ck[phys], cache["k_scale"][phys],
+                                       q.dtype)
+                vctx = dequantize_rows(cv[phys], cache["v_scale"][phys],
+                                       q.dtype)
+            else:
+                kctx, vctx = ck[phys], cv[phys]
             return flash_attention(
-                q, ck[ctx["phys"]][None], cv[ctx["phys"]][None],
+                q, kctx[None], vctx[None],
                 causal=True, window=window, q_offset=ctx["q_offset"],
                 kv_len=ctx["kv_len"], chunk=ATTN_CHUNK,
                 softcap=cfg.attn_logit_softcap)
         return flash_attention(q, k, v, causal=True, window=window,
                                chunk=ATTN_CHUNK,
                                softcap=cfg.attn_logit_softcap)
-    ck.index_copy_(0, slots, k[:, 0])         # decode: one token per slot
-    cv.index_copy_(0, slots, v[:, 0])
+    write(k[:, 0], v[:, 0])                   # decode: one token per slot
     return paged_gqa_decode_attention(
         q, ck, cv, paged["block_tables"], paged["kv_len"], window,
         page_size=paged["page_size"], softcap=cfg.attn_logit_softcap,
-        impl=paged.get("impl", "auto"))
+        impl=paged.get("impl", "auto"), k_scale=cache.get("k_scale"),
+        v_scale=cache.get("v_scale"))
 
 
 def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
                positions: torch.Tensor, theta: float, window: int,
                cache: Dict[str, torch.Tensor],
-               paged: Dict[str, Any]) -> torch.Tensor:
+               paged: Dict[str, Any], qmm=None) -> torch.Tensor:
     B, S, _ = x.shape
-    q, k, v = _project_qkv(cfg, ap, x, x)
+    q, k, v = _project_qkv(cfg, ap, x, x, qmm)
     q = _rope(q, positions, theta)
     k = _rope(k, positions, theta)
     out = _paged_attn(cfg, q, k, v, window, cache, paged)
-    return out.reshape(B, S, -1) @ ap["w_o"]
+    return proj(out.reshape(B, S, -1), ap["w_o"], qmm)
 
 
-def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor) -> torch.Tensor:
-    return mlp(lp["mlp"], x, cfg.act)
+def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+         qmm=None) -> torch.Tensor:
+    return mlp(lp["mlp"], x, cfg.act, qmm)
 
 
 def _layer_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                    positions: torch.Tensor, theta: float, window: int,
-                   cache: Dict[str, Any],
-                   paged: Dict[str, Any]) -> torch.Tensor:
+                   cache: Dict[str, Any], paged: Dict[str, Any],
+                   qmm=None) -> torch.Tensor:
     """One pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
     h = rms_norm(x, lp["ln1"]["g"], cfg.norm_eps)
     x = x + _self_attn(cfg, lp["attn"], h, positions, theta, window,
-                       cache["self"], paged)
+                       cache["self"], paged, qmm)
     h2 = rms_norm(x, lp["ln2"]["g"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h2)
+    return x + _ffn(cfg, lp, h2, qmm)
 
 
 # ----------------------------------------------------------------------
@@ -221,6 +258,9 @@ class Model:
             raise NotImplementedError(
                 f"arch {cfg.name!r}: MoE layers are not ported yet")
         self.cfg = cfg
+        #: quantized-matmul hook (``repro_torch.quant.make_qmm``), set by
+        #: ``ModelRunner`` under ``--quant q4``; None = dense ``x @ w``
+        self.qmm = None
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
@@ -248,6 +288,7 @@ class Model:
     def init_cache(self, batch: int, max_len: int, *,
                    page_size: Optional[int] = None,
                    n_pages: Optional[int] = None,
+                   kv_dtype: str = "fp32",
                    device: Any = "cuda") -> Dict[str, Any]:
         """Zero **paged** cache for the continuous-batching engine.
 
@@ -260,10 +301,21 @@ class Model:
           the physical page of each slot's logical page (0 = unmapped),
           owned by the host-side allocator (``serving.kv_pool``).
 
+        ``kv_dtype="int8"`` (``--kv-dtype int8``) makes ``k``/``v`` int8
+        code buffers and adds ``k_scale``/``v_scale`` ((rows, Hkv) f32,
+        one scale per token row per kv head, ``repro_torch.quant.kv_int8``);
+        ``"fp32"`` keeps the pages in ``cfg.dtype``.
+
         ``batch`` is the number of running-batch *slots*.  The ring
-        cache (``page_size=None``) and int8 pages are not ported yet.
+        cache (``page_size=None``) is not ported yet.
         """
         cfg = self.cfg
+        if kv_dtype != "fp32" and page_size is None:
+            raise ValueError("kv_dtype applies to the paged cache only "
+                             "(pass page_size=...)")
+        if kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"kv_dtype={kv_dtype!r}: choose 'fp32' or "
+                             "'int8'")
         if page_size is None:
             raise NotImplementedError(
                 "the ring-buffer KV cache is not ported yet; pass "
@@ -273,13 +325,23 @@ class Model:
             n_pages = 1 + batch * max_pages       # page 0 is scratch
         rows = n_pages * page_size
         shape = (rows, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+        def layer() -> Dict[str, Any]:
+            if kv_dtype == "int8":
+                buf = {n: torch.zeros(shape, dtype=torch.int8, device=device)
+                       for n in ("k", "v")}
+                buf.update({n: torch.zeros(shape[:2], dtype=torch.float32,
+                                           device=device)
+                            for n in ("k_scale", "v_scale")})
+                return {"self": buf}
+            return {"self": {
+                n: torch.zeros(shape, dtype=cfg.dtype, device=device)
+                for n in ("k", "v")}}
+
         return {
             "block_tables": torch.zeros((batch, max_pages),
                                         dtype=torch.int32, device=device),
-            "layers": [{"self": {
-                "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}}
-                for _ in range(cfg.n_layers)],
+            "layers": [layer() for _ in range(cfg.n_layers)],
         }
 
     # ------------------------------------------------------------------
@@ -296,7 +358,8 @@ class Model:
         layers = params["layers"]
         for i in range(cfg.n_layers):
             x = _layer_forward(cfg, _index_tree(layers, i), x, positions,
-                               thetas[i], windows[i], caches[i], paged)
+                               thetas[i], windows[i], caches[i], paged,
+                               self.qmm)
         return x
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:

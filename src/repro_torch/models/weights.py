@@ -11,11 +11,13 @@ bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects: they cross as their uint16 bit patterns
 and are viewed as ``torch.bfloat16`` on this side, bit for bit.
 :func:`params_to_numpy` is the way back (bf16 leaves as uint16 bits).
+A tree the reference has already quantized (``{"q4_packed": uint8,
+"q4_scales": f32}`` subtrees) crosses the same way, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -23,11 +25,29 @@ import torch
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples."""
+    return tree_map_with_path(lambda _path, leaf: fn(leaf), tree)
+
+
+def tree_map_with_path(fn: Callable[[Tuple, Any], Any], tree: Any,
+                       path: Tuple = ()) -> Any:
+    """``fn(path, leaf)`` for every leaf; ``path`` is the tuple of dict
+    keys and list indices from the root (``jax.tree_util``'s
+    ``tree_map_with_path``, with plain keys)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def tree_leaves_with_path(tree: Any) -> List[Tuple[Tuple, Any]]:
+    """``[(path, leaf), ...]`` in the order :func:`tree_map_with_path`
+    visits them."""
+    out: List[Tuple[Tuple, Any]] = []
+    tree_map_with_path(lambda p, leaf: out.append((p, leaf)), tree)
+    return out
 
 
 def _to_torch(arr: Any, device: Any) -> torch.Tensor:

@@ -14,8 +14,8 @@ What this slice of the port has (counterparts of ``repro.serving``):
   sampler, request records and fault switchboard (``faults``).
 
 Not ported yet: the async engine, HTTP front end, router and worker
-fleet, the length-bucket engine, quantized and tensor-parallel serving
-and speculative decoding.
+fleet, the length-bucket engine, tensor-parallel serving and
+speculative decoding.  Quantized serving (``quant=``) is ported.
 """
 
 from . import faults

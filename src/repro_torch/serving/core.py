@@ -4,9 +4,10 @@ Counterpart of ``repro.serving.core`` on PyTorch: the same scheduler,
 KV-pool and sequence bookkeeping (host code, copied), over the port's
 :class:`~repro_torch.serving.runner.ModelRunner`.  Sampling draws from
 a ``torch.Generator`` seeded from ``seed`` on the runner's device.
-Speculative decoding (``spec_decode > 0``), tensor-parallel serving
-(``mesh=``) and quantized serving (``quant=``) are not ported yet and
-raise ``NotImplementedError``.
+Quantized serving (``quant=``, ``repro_torch.quant.QuantPolicy``) sizes
+the pool's pages by the policy's ``kv_dtype`` and hands the rest to the
+runner.  Speculative decoding (``spec_decode > 0``) and tensor-parallel
+serving (``mesh=``) are not ported yet and raise ``NotImplementedError``.
 
 Middle of the three-layer split (runner / core / async): one
 :meth:`EngineCore.step` call is exactly one iteration of the old
@@ -42,6 +43,7 @@ import torch
 from ..models.transformer import Model
 from ..obs.metrics import MetricsRegistry, NullRegistry
 from ..obs.trace import NullTracer, RequestTracer
+from ..quant.policy import QuantPolicy
 from . import faults
 from .engine import Completion, Request
 from .kv_pool import KVCachePool, KVPoolConfig
@@ -141,9 +143,11 @@ class EngineCore:
             raise NotImplementedError(
                 "speculative decoding (spec_decode > 0) is not ported yet: "
                 "it needs the batched verify step")
-        if quant is not None:
-            raise NotImplementedError(
-                "quantized serving (quant=) is not ported yet")
+        if quant is None:
+            quant = QuantPolicy()
+        #: quantization policy (``repro_torch.quant.QuantPolicy``): the
+        #: KV page format sizes the pool here; the runner applies the rest
+        self.quant = quant
         if mesh is not None or policy is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=/policy=) is not ported yet")
@@ -168,7 +172,8 @@ class EngineCore:
             n_pages=n_pages, page_size=page_size, n_layers=cfg.n_layers,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
             dtype_bytes=cfg.dtype.itemsize, n_nodes=n_nodes,
-            numa=numa, n_shards=n_shards), prefix_cache=prefix_cache)
+            numa=numa, n_shards=n_shards, kv_dtype=quant.kv_dtype),
+            prefix_cache=prefix_cache)
         self.pool.bind_registry(self.registry)
         self.scheduler = ContinuousScheduler(
             self.pool, max_running=max_running, max_len=max_len,
@@ -177,8 +182,8 @@ class EngineCore:
         self.runner = ModelRunner(
             model, params, max_running=max_running, max_len=max_len,
             page_size=page_size, n_pages=n_pages,
-            window_override=window_override, registry=self.registry,
-            clock=self.clock, device=device)
+            window_override=window_override, quant=quant,
+            registry=self.registry, clock=self.clock, device=device)
         self.params = self.runner.params          # on the runner's device
         #: sampling generator on the runner's device, seeded like the
         #: reference's ``PRNGKey(seed)`` (different bits, same role)
@@ -248,7 +253,7 @@ class EngineCore:
                 "kv_pool.page_bytes",
                 "device bytes per KV page across all layers/heads under "
                 "the configured kv_dtype").labels(
-                    kv_dtype="fp32").set(
+                    kv_dtype=quant.kv_dtype).set(
                         float(self.pool.cfg.page_bytes))
             reg.gauge(
                 "kv_pool.pages_total",

@@ -18,8 +18,13 @@ Prefill chunks are padded to power-of-two buckets as in the reference
 (there they bound XLA recompiles; here they keep the prefill maths —
 and so the logits — the reference's).
 
+Quantized serving (``quant=``, a ``repro_torch.quant.QuantPolicy``):
+Q4_0 weights are written once at load, on the runner's device, and the
+model reads them through its ``qmm`` hook; int8 KV pages are allocated
+by ``init_cache`` and quantized / dequantized inside each call.
+
 Not ported yet (``NotImplementedError``): tensor-parallel serving
-(``mesh=``), quantized serving (``quant=``) and speculative ``verify``.
+(``mesh=``) and speculative ``verify``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from ..models.transformer import Model
 from ..models.weights import params_to
+from ..quant.policy import QuantPolicy, make_qmm, quantize_serving_params
 
 
 def _pad_bucket(n: int, lo: int = 8) -> int:
@@ -66,12 +72,17 @@ class ModelRunner:
         if mesh is not None or policy is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=/policy=) is not ported yet")
-        if quant is not None:
-            raise NotImplementedError(
-                "quantized serving (quant=) is not ported yet")
         self.device = resolve_device(device)
         self.model = model
         self.params = params_to(params, self.device)
+        #: serving quantization policy: Q4_0 weights are rewritten ONCE
+        #: here, on the runner's device (the caller's tree is left
+        #: dense), and the model reads them through the ``qmm`` hook
+        self.quant = quant if quant is not None else QuantPolicy()
+        if self.quant.weights == "q4":
+            self.params = quantize_serving_params(
+                self.params, min_size=self.quant.min_size)
+            model.qmm = make_qmm(self.quant.impl)
         self.max_running = max_running
         self.max_len = max_len
         self.page_size = page_size
@@ -82,6 +93,7 @@ class ModelRunner:
         # device completion is owned by whoever synchronises)
         self._now = clock.now if clock is not None else time.perf_counter
         self._h_decode = self._h_prefill = None
+        self._c_q4_decode = self._c_q4_prefill = None
         if registry is not None:
             self._h_decode = registry.histogram(
                 "runner.decode.dispatch_ms",
@@ -89,8 +101,18 @@ class ModelRunner:
             self._h_prefill = registry.histogram(
                 "runner.prefill.dispatch_ms",
                 "prefill-chunk dispatch wall per call").labels(shards="1")
+            if self.quant.weights == "q4":
+                # every forward under Q4_0 weights routes each projection
+                # through the dequantizing matmul: count them per phase
+                c = registry.counter(
+                    "runner.quant.q4_dispatch",
+                    "forward dispatches whose projections ran through "
+                    "Q4_0 dequantizing matmuls")
+                self._c_q4_decode = c.labels(phase="decode")
+                self._c_q4_prefill = c.labels(phase="prefill")
         self.cache = model.init_cache(max_running, max_len,
                                       page_size=page_size, n_pages=n_pages,
+                                      kv_dtype=self.quant.kv_dtype,
                                       device=self.device)
 
     # ------------------------------------------------------------------
@@ -107,8 +129,9 @@ class ModelRunner:
 
     def apply_copy_rows(self, src: np.ndarray, dst: np.ndarray) -> None:
         """Apply a ``KVCachePool.copy_row_plan`` to every per-layer
-        buffer, in place: whole-page K/V row copies (the gather copies
-        first, so overlapping plans read the old rows)."""
+        buffer, in place: whole-page K/V row copies, int8 codes and their
+        scales alike (the gather copies first, so overlapping plans read
+        the old rows)."""
         s = torch.from_numpy(np.asarray(src, np.int64)).to(self.device)
         d = torch.from_numpy(np.asarray(dst, np.int64)).to(self.device)
         for layer in self.cache["layers"]:
@@ -142,6 +165,8 @@ class ModelRunner:
                 window_override=self.window_override)
         if self._h_prefill is not None:
             self._h_prefill.observe((self._now() - t0) * 1e3)
+        if self._c_q4_prefill is not None:
+            self._c_q4_prefill.inc()
         return logits
 
     def decode(self, fed: np.ndarray, pos: np.ndarray) -> torch.Tensor:
@@ -156,4 +181,6 @@ class ModelRunner:
             page_size=self.page_size, window_override=self.window_override)
         if self._h_decode is not None:
             self._h_decode.observe((self._now() - t0) * 1e3)
+        if self._c_q4_decode is not None:
+            self._c_q4_decode.inc()
         return logits

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the GPU.
+"""The port's CUDA kernels against their plain versions, on the GPU.
 
 These tests carry the ``cuda`` marker and skip where no GPU is present
 (the check runs inside each test, not at import).  This file imports
@@ -7,12 +7,19 @@ machine, which has no JAX:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance: the kernel and the plain version read the same page values
-(bf16 -> f32 is exact) and both compute in f32; they differ only in
-summation order and online-softmax rescaling, ~1e-6 at these lengths,
-so 1e-5 absolute.  With a bf16 query the kernel rounds its f32 result
-to bf16 (round to nearest), which moves each value by at most half a
-bf16 ulp, 2**-8 of its size: that is added to the bound.
+Tolerance, paged decode attention (bf16, f32 and int8 pages): the
+kernel and the plain version read the same page values (bf16 -> f32 and
+int8 code x scale are exact) and both compute in f32; they differ only
+in summation order and online-softmax rescaling, ~1e-6 at these
+lengths, so 1e-5 absolute.  With a bf16 query the kernel rounds its f32
+result to bf16 (round to nearest), which moves each value by at most
+half a bf16 ulp, 2**-8 of its size: that is added to the bound.
+
+Tolerance, Q4_0 GEMM: both sides multiply x by the same exactly
+dequantized weights and sum in f32 in other orders, so the Pallas
+test's rtol 1e-5 / atol 1e-4 (``tests/test_kernels.py``), plus half a
+bf16 ulp of the plain value for a bf16 result.  TF32 is off for the
+plain version's matmul.
 """
 
 import numpy as np
@@ -22,6 +29,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.q4_gemm import q4_gemm
+from repro_torch.quant import q4_0, quantize_rows
 
 TOL = 1e-5
 BF16_HALF_ULP = 2.0 ** -8
@@ -41,6 +50,7 @@ def _device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernel is CUDA C++ for "
                     "sm_90a and has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -115,23 +125,136 @@ def test_ops_wrapper_launches_the_kernel_on_cuda_tensors():
     assert (out - ref)[1:].abs().max().item() < TOL
 
 
+def _int8_pages(k, v):
+    """Quantize float pages (P, ps, H, D) as the model writes them."""
+    (kc, ks), (vc, vs) = quantize_rows(k), quantize_rows(v)
+    return kc, vc, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,G,ps", [(16, 1, 4), (32, 2, 16), (128, 2, 16),
+                                    (256, 4, 8)])
+def test_int8_kernel_matches_plain_version(q_dtype, D, G, ps):
+    """Int8 pages with per-(row, head) scales; a scratch row of scale 0
+    sits in every table (physical page 0), and kv_len 0 stays finite."""
+    dev = _device()
+    q, k, v, bt, lens = _case(D * 3 + G, B=5, H=2, G=G, D=D, ps=ps,
+                              max_pages=9, lens=[0, 1, ps, ps + 1, 9 * ps],
+                              dtype=torch.float32, dev=dev, q_dtype=q_dtype)
+    k[0], v[0] = 0.0, 0.0
+    bt[1, 0] = 0
+    kc, vc, ks, vs = _int8_pages(k, v)
+    assert (ks[0] == 0).all()
+    live = lens > 0
+    for window in (0, 7):
+        for softcap in (0.0, 30.0):
+            got = paged_decode_attention(q, kc, vc, bt, lens, window,
+                                         softcap=softcap, k_scales=ks,
+                                         v_scales=vs)
+            torch.cuda.synchronize()
+            want = tref.paged_decode_attention_ref(
+                q, kc, vc, bt, lens, window, softcap=softcap, k_scales=ks,
+                v_scales=vs)
+            assert got.dtype == q.dtype
+            assert torch.isfinite(got).all()
+            excess, err = _max_excess(got, want, live)
+            assert excess <= 0, (window, softcap, err)
+
+
 @pytest.mark.cuda
 def test_ops_wrapper_refuses_int8_pages_on_cuda_tensors():
-    """No int8 kernel variant yet: the scale path raises on the card
-    instead of running the plain version there."""
+    """The int8 page path of ops.paged_gqa_decode_attention launches the
+    int8 kernel on the card (impl="ref" still runs the plain version),
+    and the kernel refuses int8 pages without float32 scales."""
     dev = _device()
-    q, k, v, bt, lens = _case(3, B=2, H=2, G=2, D=32, ps=4, max_pages=2,
-                              lens=[1, 8], dtype=torch.float32, dev=dev)
+    q, k, v, bt, lens = _case(3, B=3, H=2, G=2, D=32, ps=4, max_pages=4,
+                              lens=[0, 5, 16], dtype=torch.float32, dev=dev)
     B, H, G, D = q.shape
-    scale = torch.ones(k.shape[0] * 4, H, device=dev)
+    kc, vc, ks, vs = _int8_pages(k, v)
+    args = (q.reshape(B, 1, H * G, D), kc.reshape(-1, H, D),
+            vc.reshape(-1, H, D), bt, lens, 3)
+    kw = dict(page_size=4, k_scale=ks.reshape(-1, H),
+              v_scale=vs.reshape(-1, H))
     before = paged_decode_attention.launches
-    for impl in ("auto", "ref"):
-        with pytest.raises(NotImplementedError, match="int8 pages"):
-            ops.paged_gqa_decode_attention(
-                q.reshape(B, 1, H * G, D), k.to(torch.int8).reshape(-1, H, D),
-                v.to(torch.int8).reshape(-1, H, D), bt, lens, page_size=4,
-                impl=impl, k_scale=scale, v_scale=scale)
-    assert paged_decode_attention.launches == before
+    out = ops.paged_gqa_decode_attention(*args, **kw)
+    assert paged_decode_attention.launches == before + 1
+    ref = ops.paged_gqa_decode_attention(*args, impl="ref", **kw)
+    assert paged_decode_attention.launches == before + 1
+    assert (out - ref)[1:].abs().max().item() < TOL
+    with pytest.raises(ValueError, match="k_scales and v_scales"):
+        paged_decode_attention(q, kc, vc, bt, lens)
+    with pytest.raises(ValueError, match="k_scales"):
+        paged_decode_attention(q, kc, vc, bt, lens, k_scales=ks.double(),
+                               v_scales=vs)
+    assert paged_decode_attention.launches == before + 1
+
+
+def _q4_case(seed, M, K, N, x_dtype, dev):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(size=(K, N)) / np.sqrt(K)).float()
+    packed, scales = q4_0.quantize(w.to(dev))
+    x = torch.from_numpy(rng.normal(size=(M, K))).to(dev, x_dtype)
+    return x, packed, scales
+
+
+def _q4_excess(got, want):
+    """Largest |got - want| beyond rtol 1e-5 / atol 1e-4 (+ half a bf16
+    ulp for a bf16 result); <= 0 when within the bound."""
+    err = (got.float() - want).abs()
+    bound = 1e-4 + 1e-5 * want.abs()
+    if got.dtype == torch.bfloat16:
+        bound = bound + BF16_HALF_ULP * want.abs()
+    return (err - bound).max().item(), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 128, 200])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 1024), (2048, 6144),
+                                 (6144, 2048), (128, 64), (320, 36)])
+def test_q4_kernel_matches_plain_version(x_dtype, M, K, N):
+    """The four full-width projection shapes, bench-tiny widths and a
+    ragged K / N (320 = 10 blocks, 36 = not a multiple of 32 columns)."""
+    dev = _device()
+    x, packed, scales = _q4_case(M + K + N, M, K, N, x_dtype, dev)
+    got = q4_gemm(x, packed, scales)
+    torch.cuda.synchronize()
+    want = tref.q4_gemm_ref(x, packed, scales)
+    assert got.dtype == x_dtype and got.shape == (M, N)
+    excess, err = _q4_excess(got, want)
+    assert excess <= 0, err
+
+
+@pytest.mark.cuda
+def test_q4_matmul_launches_the_kernel_and_refuses_what_it_cannot_take():
+    dev = _device()
+    x, packed, scales = _q4_case(4, 8, 256, 64, torch.bfloat16, dev)
+    before = q4_gemm.launches
+    out = ops.q4_matmul(x, packed, scales)
+    assert q4_gemm.launches == before + 1
+    ref = ops.q4_matmul(x, packed, scales, impl="ref")
+    assert q4_gemm.launches == before + 1 and ref.dtype == torch.bfloat16
+    ops.q4_matmul(x, packed, scales, impl="kernel")
+    assert q4_gemm.launches == before + 2
+    excess, err = _q4_excess(out, tref.q4_gemm_ref(x, packed, scales))
+    assert excess <= 0, err
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        q4_gemm(x.half(), packed, scales)
+    with pytest.raises(ValueError, match="does not fit"):
+        q4_gemm(x[:, :128], packed, scales)
+    with pytest.raises(ValueError, match=r"\(8, 256, 62\)"):
+        q4_gemm(x, packed[:, :62].contiguous(), scales[:, :62].contiguous())
+    with pytest.raises(ValueError, match="on cpu"):
+        q4_gemm(x, packed.cpu(), scales)
+    assert q4_gemm.launches == before + 2
+    # x at an address the kernel's 16-byte loads cannot take is copied
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(q4_gemm(shifted, packed, scales),
+                       q4_gemm(x, packed, scales))
 
 
 @pytest.mark.cuda

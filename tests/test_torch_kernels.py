@@ -122,7 +122,8 @@ def test_int8_page_scales_match_the_oracle():
 def test_ops_wrapper_reads_int8_pages_like_the_reference():
     """On CPU tensors the scale path of ops.paged_gqa_decode_attention
     reads int8 pages through the plain version, as the reference's
-    wrapper does (on CUDA tensors it raises: tests/test_torch_cuda.py)."""
+    wrapper does (on CUDA tensors it launches the int8 kernel:
+    tests/test_torch_cuda.py)."""
     q, k, v, bt, lens = _case(52, B=4, H=2, G=2, D=16, ps=4)
     rng = np.random.default_rng(53)
     B, H, G, D = q.shape

@@ -220,9 +220,6 @@ def test_engine_refuses_missing_gpu_and_unported_features(shared_model):
     with pytest.raises(NotImplementedError, match="speculative"):
         tserving.ContinuousServingEngine(tm, tparams, max_len=32,
                                          spec_decode=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tserving.ContinuousServingEngine(tm, tparams, max_len=32,
-                                         quant=object(), device="cpu")
 
 
 def test_sampler_greedy_ties_and_top_k():
@@ -248,6 +245,7 @@ def test_port_imports_without_jax_or_the_reference():
         "sys.modules['jax'] = None\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.models.weights\n"
+        "import repro_torch.quant\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and (m == 'repro'\n"
         "             or m.startswith(('repro.', 'jax', 'ml_dtypes'))))\n"
