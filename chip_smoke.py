@@ -7,8 +7,8 @@ Drives the port's main paths (``src/repro_torch``) on the card and exits
 non-zero if any phase fails, or if no CUDA device is present:
 
 1. card: torch / CUDA versions and the card's name and power limit;
-2. build: compile both kernels from ``src/repro_torch/csrc`` with nvcc
-   for sm_90a, one nvcc per source, started together;
+2. build: compile the four kernel sources of ``src/repro_torch/csrc``
+   with nvcc for sm_90a, one nvcc per source, all started together;
 3. kernels vs plain versions on the card:
    a. paged decode attention at the serving path's shapes (B=8, 16 query
       / 8 kv heads, D=128, 16-token bf16 pages, kv_len 0-2048, windows 0
@@ -45,7 +45,32 @@ non-zero if any phase fails, or if no CUDA device is present:
    the plain versions (plain ``qmm`` and plain attention) on a clone of
    the int8 cache; the int8 kernel is timed on that state beside the
    bf16 kernel on the same state dequantized, and a decode step is
-   profiled.
+   profiled;
+9. the contiguous decode-attention kernel vs its plain version: at
+   RecurrentGemma's decode shape (B 4 and 8, one kv head, G=10, D=256,
+   bf16 cache of 560 slots) in the TPU kernel's form (kv_len 0, 1, 300,
+   560) and in the ring form (filling, full and wrapped rings, windows 7
+   and 2048, softcap 0 and 30), and at the Qwen3 (8 / 16 heads, D=128,
+   bf16) and bench-tiny (2 / 4 heads, D=32, f32) shapes;
+10. the RG-LRU scan kernel vs its plain version at (4, 512, 2560),
+    (8, 256, 2560), (2, 37, 64) and (4, 1, 2560), with and without h0:
+    bit for bit;
+11. timing of both, inputs rotated past the L2: the decode kernel at B=4
+    and 8, kv_len 544 and 2048 over a ring, beside its plain version, its
+    byte bound and ``scaled_dot_product_attention`` with a boolean mask
+    (the yardstick the port never calls); the scan at (4, 512, 2560)
+    beside its plain version and byte bound (no PyTorch call computes
+    this recurrence);
+12. serve full-width RecurrentGemma-2B (26 layers, bf16, weights drawn
+    from a seeded ``torch.Generator``) through ``ServingEngine`` /
+    ``BucketRunner``: 8 requests, four prompts of 256 random tokens and
+    four of 512, ``max_batch=4`` (two buckets), 32 greedy tokens each;
+    checks the completions and the launch counts (decode kernel = 8 x
+    decode steps, scan kernel = 18 x prefill calls);
+13. parity on the card: prefill logits with the scan kernel against the
+    plain scan, and one decode step with the kernels against the plain
+    versions on a clone of the ring cache; then a decode step is
+    profiled.
 
 It prints one JSON line ``{"kernels": [...]}`` before the last line, and
 as the last line ``{"ok": true, "device": {...}}``.  Nothing here
@@ -90,6 +115,16 @@ LOGIT_TOL = 0.125
 #: token's K/V may then quantize one int8 code apart; logits here lie at
 #: |x| 8-16, where one bf16 ulp is 0.0625, so four ulps
 LOGIT_TOL_Q4 = 0.25
+#: RG-LRU scan kernel vs plain version: the same sequential recurrence
+#: with the same two f32 roundings per step (the kernel's __fmul_rn /
+#: __fadd_rn are never fused into an FMA), so bit for bit: tolerance 0
+SCAN_TOL = 0.0
+#: full-width RecurrentGemma-2B logits, kernels vs plain versions, in
+#: bf16: decode attention differs by ~1e-6 in f32 before its bf16
+#: rounding, as the paged kernel's does, and 26 layers of bf16 residual
+#: arithmetic carry a one-ulp flip into logits of size ~1; the scan is bit
+#: for bit, so prefill logits should agree exactly.  The Qwen3 tolerance
+LOGIT_TOL_RG = 0.125
 #: the 7 projections of one full-width Qwen3-1.7B layer: (K, N)
 Q4_PROJ = {"w_q": (2048, 2048), "w_k": (2048, 1024), "w_v": (2048, 1024),
            "w_o": (2048, 2048), "w_gate": (2048, 6144),
@@ -305,18 +340,18 @@ def logit_parity(torch, got, want, tol, what):
         fail(f"{what}: decode parity failed")
 
 
-def profile_step(torch, model, params, cache, fed_t, first, ps, label,
-                 card):
-    """Host wall per full-width decode step (synchronised, no profiler),
-    then device time by kernel name from torch.profiler over the same
-    number of further steps."""
+def profile_step(torch, step, first, label, card, batch=8):
+    """Host wall per full-width decode step (``step(pos)`` runs one,
+    synchronised, no profiler), then device time by kernel name from
+    torch.profiler over the same number of further steps.  Returns the
+    device milliseconds per step by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n_steps = 4
 
     def steps(start):
         for s in range(n_steps):
-            model.decode_step(params, cache, fed_t, start + s, page_size=ps)
+            step(start + s)
         torch.cuda.synchronize()
 
     torch.cuda.synchronize()
@@ -333,11 +368,12 @@ def profile_step(torch, model, params, cache, fed_t, first, ps, label,
         if e.device_time_total > 0:                 # microseconds
             by_kernel[e.key] = e.device_time_total / n_steps / 1e3
     busy_ms = sum(by_kernel.values())
-    print(f"[profile] {label} decode step (B=8): wall {wall_ms:.2f} ms, "
-          f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of wall) "
-          f"— {card}")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+    print(f"[profile] {label} decode step (B={batch}): wall {wall_ms:.2f} "
+          f"ms, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of "
+          f"wall) — {card}")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {ms * 1e3:8.1f} us/step  {name[:90]}")
+    return by_kernel
 
 
 def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
@@ -410,6 +446,257 @@ def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
     return err, t_k, t_p, t_l, b_ms, b_by, t_bf16
 
 
+def ring_positions(torch, n_written, slots, dev="cuda"):
+    """The position array of a ring of ``slots`` after positions
+    0 .. n_written - 1 were written at ``p % slots`` (-1 = empty)."""
+    pos = torch.full((slots,), -1, dtype=torch.int32)
+    p = torch.arange(max(n_written - slots, 0), n_written, dtype=torch.int32)
+    pos[p.long() % slots] = p
+    return pos.to(dev)
+
+
+def check_decode_kernel(torch, ref, kern, gen, dev="cuda"):
+    """Phase 9: the contiguous decode kernel against its plain version,
+    in the TPU form (kv_len, nothing valid at 0: the mean of V in both)
+    and in the ring form (filling, full and wrapped rings).  Returns the
+    largest |kernel - plain|."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("recurrentgemma B=4", 4, 560, 1, 10, 256, bf16),
+             ("recurrentgemma B=8", 8, 560, 1, 10, 256, bf16),
+             ("qwen3", 8, 1024, 8, 2, 128, bf16),
+             ("bench-tiny", 8, 256, 2, 2, 32, f32)]
+    max_err = 0.0
+    for name, B, S, H, G, D, dtype in cases:
+        q = torch.randn(B, H, G, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+        runs = []
+        for kv_len in (0, 1, 300, S):
+            for window, softcap in ((0, 0.0), (0, 30.0), (7, 0.0)):
+                runs.append((f"kv_len={kv_len} window={window} "
+                             f"softcap={softcap}",
+                             dict(kv_len=kv_len, window=window,
+                                  softcap=softcap)))
+        for n_written in (300, S, 3 * S - 100):
+            pos = ring_positions(torch, n_written, S, dev)
+            for window in (7, 2048):
+                for softcap in (0.0, 30.0):
+                    runs.append((f"ring of {S} after {n_written} "
+                                 f"positions window={window} "
+                                 f"softcap={softcap}",
+                                 dict(kv_positions=pos, q_pos=n_written - 1,
+                                      window=window, softcap=softcap)))
+        case_err = 0.0
+        for what, kw in runs:
+            got = kern(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = ref.decode_attention_ref(q, k, v, **kw)
+            err = check(torch, got, want, ..., f"{name} {what}")
+            case_err = max(case_err, err)
+        max_err = max(max_err, case_err)
+        print(f"[kernel] decode_attention {name} (B={B}, S={S}, {H}/{H * G}"
+              f" heads, D={D}, {dtype}): {len(runs)} cases, max|kernel-"
+              f"plain| {case_err:.3e}")
+    return max_err
+
+
+def check_scan_kernel(torch, ref, kern, gen, dev="cuda"):
+    """Phase 10: the RG-LRU scan kernel against its plain version, bit
+    for bit.  Returns the largest |kernel - plain|."""
+    max_err = 0.0
+    for B, T, W in ((4, 512, 2560), (8, 256, 2560), (2, 37, 64),
+                    (4, 1, 2560)):
+        a = 0.5 + 0.5 * torch.rand(B, T, W, generator=gen, device=dev)
+        u = torch.randn(B, T, W, generator=gen, device=dev)
+        h0 = torch.randn(B, W, generator=gen, device=dev)
+        for h in (None, h0):
+            got = kern(a, u, h)
+            torch.cuda.synchronize()
+            want = ref.rglru_scan_ref(a, u, h)
+            err = (got - want).abs().max().item()
+            if not (bool(torch.isfinite(got).all()) and err <= SCAN_TOL):
+                fail(f"rglru_scan ({B}, {T}, {W}) h0={h is not None}: "
+                     f"kernel disagrees with the plain version ({err:.3e})")
+            max_err = max(max_err, err)
+            print(f"[kernel] rglru_scan ({B}, {T}, {W}) h0="
+                  f"{h is not None}: max|kernel-plain| {err:.3e}")
+    return max_err
+
+
+def time_decode_kernel(torch, F, ref, kern, gen, card, dev="cuda"):
+    """Phase 11a: the decode kernel over a ring at RecurrentGemma's shape,
+    K/V rotated past the L2.  Returns {(B, kv_len): (kernel ms, plain ms,
+    SDPA ms, bound ms, bound_by)}."""
+    H, G, D, out = 1, 10, 256, {}
+    for B in (4, 8):
+        for kv_len in (544, 2048):
+            S = kv_len + 16
+            n = max(2, math.ceil(ROTATE_BYTES / (2 * B * S * H * D * 2)))
+            q = torch.randn(B, H, G, D, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            ks = [torch.randn(B, S, H, D, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(n)]
+            vs = [torch.randn(B, S, H, D, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(n)]
+            pos = ring_positions(torch, kv_len, S, dev)
+            kw = dict(kv_positions=pos, q_pos=kv_len - 1, window=2048)
+            t_k = cuda_ms(torch, lambda i: kern(q, ks[i % n], vs[i % n],
+                                                **kw), 200)
+            t_p = cuda_ms(torch, lambda i: ref.decode_attention_ref(
+                q, ks[i % n], vs[i % n], **kw).to(q.dtype), 20)
+            # yardstick only: SDPA over the same cache, one kv head
+            # expanded to the 10 query heads (enable_gqa), boolean mask
+            kt = [t.transpose(1, 2).contiguous() for t in ks]
+            vt = [t.transpose(1, 2).contiguous() for t in vs]
+            qs = q.reshape(B, H * G, 1, D)
+            valid = (pos >= 0) & (pos <= kv_len - 1) & (pos > kv_len - 1 -
+                                                         2048)
+            mask = valid.reshape(1, 1, 1, S)
+            t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qs, kt[i % n], vt[i % n], attn_mask=mask, enable_gqa=True),
+                200)
+            nbytes = (2 * B * kv_len * H * D * 2 + 2 * B * H * G * D * 2
+                      + S * 4)
+            b_ms, b_by = least(nbytes, 4 * B * kv_len * H * G * D,
+                               "bfloat16")
+            out[(B, kv_len)] = (t_k, t_p, t_l, b_ms, b_by)
+            print(f"[timing] decode_attention B={B} kv_len={kv_len} (ring "
+                  f"of {S}, MQA 10 heads, D=256, bf16): kernel "
+                  f"{t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa "
+                  f"(masked, enable_gqa) {t_l * 1e3:.1f} us, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}) — {card}")
+            del ks, vs, kt, vt
+    return out
+
+
+def time_scan_kernel(torch, ref, kern, gen, card, dev="cuda"):
+    """Phase 11b: the scan at (4, 512, 2560) with a zero h0, as a prefill
+    of the 512-token bucket runs it; a and u rotated past the L2.
+    Returns (kernel ms, plain ms, bound ms, bound_by)."""
+    B, T, W = 4, 512, 2560
+    n = max(2, math.ceil(ROTATE_BYTES / (2 * B * T * W * 4)))
+    As = [0.5 + 0.5 * torch.rand(B, T, W, generator=gen, device=dev)
+          for _ in range(n)]
+    Us = [torch.randn(B, T, W, generator=gen, device=dev)
+          for _ in range(n)]
+    h0 = torch.zeros(B, W, device=dev)
+    t_k = cuda_ms(torch, lambda i: kern(As[i % n], Us[i % n], h0), 50)
+    t_p = cuda_ms(torch, lambda i: ref.rglru_scan_ref(As[i % n], Us[i % n],
+                                                      h0), 3)
+    b_ms, b_by = least(12 * B * T * W + 4 * B * W, 2 * B * T * W, "float32")
+    print(f"[timing] rglru_scan ({B}, {T}, {W}) f32: kernel {t_k * 1e3:.1f} "
+          f"us, plain {t_p * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+          f"({b_by}); no single PyTorch call computes this recurrence — "
+          f"{card}")
+    return t_k, t_p, b_ms, b_by
+
+
+def counted(calls, name, fn):
+    """``fn`` that adds one to ``calls[name]`` per call."""
+    def call(*args, **kw):
+        calls[name] += 1
+        return fn(*args, **kw)
+    return call
+
+
+def serve_recurrentgemma(torch, np, kernels, card, dev="cuda", cfg=None,
+                         lens=(256, 512), max_len=560):
+    """Phase 12: full-width RecurrentGemma-2B through the bucket engine:
+    a warm-up request, then 8 measured requests (four prompts of each
+    length in ``lens``, 32 greedy tokens each, ``max_batch=4``) with
+    every kernel's launch count set to 0 just before and read just
+    after.  Returns (model, engine, prompts, launches by kernel name,
+    runner calls by phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant import param_bytes
+    from repro_torch.serving import (Request, SamplingParams, ServingEngine,
+                                     throughput_report)
+    cfg = cfg or get_config("recurrentgemma-2b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    wgen = torch.Generator(device=dev)
+    wgen.manual_seed(0)
+    params = model.init(wgen)
+    torch.cuda.synchronize()
+    print(f"[rg] {cfg.name}: {cfg.n_layers} layers ({model.n_full_blocks} "
+          f"(R, R, A) blocks + {model.n_tail} tail), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+          f"lru_width {cfg.lru_width}, window {cfg.sliding_window}; "
+          f"{param_bytes(params) / 2**30:.3f} GiB of {cfg.dtype} weights "
+          f"on the card ({time.perf_counter() - t0:.1f} s to draw)")
+    eng = ServingEngine(model, params, max_len=max_len, seed=0, device=dev)
+    del params
+    calls = {"prefill": 0, "decode": 0}
+    eng.runner.prefill = counted(calls, "prefill", eng.runner.prefill)
+    eng.runner.decode = counted(calls, "decode", eng.runner.decode)
+    rng = np.random.default_rng(1)
+    V = cfg.vocab_size
+    prompts = [rng.integers(0, V, n).tolist() for n in lens for _ in range(4)]
+    eng.generate([Request(uid=100, prompt=prompts[0][:16],
+                          sampling=SamplingParams(max_new_tokens=2))])
+    reqs = [Request(uid=i, prompt=p,
+                    sampling=SamplingParams(max_new_tokens=32))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0                     # count the main path only
+    calls.update(prefill=0, decode=0)
+    comps = eng.generate(reqs, max_batch=4)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if len(comps) != len(reqs):
+        fail(f"rg: {len(comps)} of {len(reqs)} requests completed")
+    for c in comps:
+        if len(c.tokens) != 32 or not all(0 <= t < V for t in c.tokens):
+            fail(f"rg: request {c.uid}: {len(c.tokens)} tokens, in vocab: "
+                 f"{all(0 <= t < V for t in c.tokens)}")
+    rep = throughput_report(comps, **eng.last_phase_s)
+    ttft = sorted(c.t_first - c.t0 for c in comps)
+    print(f"[rg] {len(comps)} requests x 32 tokens in "
+          f"{len(eng._buckets(reqs, 4))} buckets; {calls['prefill']} "
+          f"prefill calls, {calls['decode']} decode steps; launches "
+          f"{launches}")
+    print(f"[rg] decode {rep['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{rep['prefill_tok_per_s']:.1f} tok/s, wall {rep['wall_s']:.3f} "
+          f"s, TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max "
+          f"{ttft[-1] * 1e3:.1f} ms, peak memory {peak / 2**30:.2f} GiB — "
+          f"{card}", flush=True)
+    return model, eng, prompts, launches, calls
+
+
+def rg_parity(torch, model, params, prompts, card, dev="cuda"):
+    """Phase 13: from the 512-token bucket's prompts, prefill with the
+    scan kernel and with the plain scan (fresh ring caches), then one
+    decode step with the kernels and with the plain versions on a clone
+    of the cache; logits must agree.  Then a decode step is profiled.
+    Returns the device ms per step by kernel name."""
+    from repro_torch.models.weights import tree_map
+    B, S = 4, len(prompts[-1])
+    toks = torch.tensor(prompts[-B:], dtype=torch.long, device=dev)
+    max_len = S + 48
+    cache = model.init_cache(B, max_len, device=dev)
+    got, _ = model.prefill(params, {"tokens": toks}, cache)
+    plain_cache = model.init_cache(B, max_len, device=dev)
+    want, _ = model.prefill(params, {"tokens": toks}, plain_cache,
+                            impl="ref")
+    logit_parity(torch, got, want, LOGIT_TOL_RG,
+                 "RecurrentGemma prefill logits, scan kernel vs plain")
+    del plain_cache
+    fed = got[:, 0].float().argmax(-1, keepdim=True)
+    clone = tree_map(lambda t: t.clone(), cache)
+    got, _ = model.decode_step(params, cache, fed, S)
+    want, _ = model.decode_step(params, clone, fed, S, impl="ref")
+    logit_parity(torch, got, want, LOGIT_TOL_RG,
+                 "RecurrentGemma decode logits, kernels vs plain")
+    del clone
+    return profile_step(torch, lambda p_: model.decode_step(
+        params, cache, fed, p_), S + 1, "full-width RecurrentGemma", card,
+        batch=B)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch under {ROOT}: run chip_smoke.py from the "
@@ -438,19 +725,23 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import q4_gemm as qg
+    from repro_torch.kernels import rglru_scan as rs
     from repro_torch.quant import (QuantPolicy, count_q4_leaves, make_qmm,
                                    param_bytes, q4_0, quantize_rows)
     kernel = da.paged_decode_attention
     q4k = qg.q4_gemm
-    kernels = {"paged_decode_attention": kernel, "q4_gemm": q4k}
+    kernels = {"paged_decode_attention": kernel, "q4_gemm": q4k,
+               "decode_attention": da.decode_attention,
+               "rglru_scan": rs.rglru_scan}
 
-    # -- 2. build: one nvcc per source, both at once ----------------------
+    # -- 2. build: one nvcc per source, all at once -----------------------
+    sources = (da.KERNEL, qg.KERNEL, da.CONTIGUOUS_KERNEL, rs.KERNEL)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        list(ex.map(build.load, (da.KERNEL, qg.KERNEL)))
-    print(f"[build] {da.KERNEL} + {qg.KERNEL}: "
+    with ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(build.load, sources))
+    print(f"[build] {' + '.join(sources)}: "
           f"{time.perf_counter() - t0:.2f} s wall")
-    for name in (da.KERNEL, qg.KERNEL):
+    for name in sources:
         rec = build.build_record(name)
         print(f"[build] {name}: nvcc {rec['seconds']:.2f} s, "
               f"cached={rec['cached']}")
@@ -641,8 +932,9 @@ def main() -> int:
     if decode_steps <= 0 or launches != cfg.n_layers * decode_steps:
         fail(f"kernel launches {launches} != {cfg.n_layers} x "
              f"{decode_steps} decode steps")
-    if counts["q4_gemm"]:
-        fail(f"bf16 serving launched the Q4_0 GEMM {counts['q4_gemm']} times")
+    for name in ("q4_gemm", "decode_attention", "rglru_scan"):
+        if counts[name]:
+            fail(f"bf16 paged serving launched {name} {counts[name]} times")
 
     # -- 6. decode parity on the card (bf16) -----------------------------
     cache, clone, fed_t, pos, ps = parity_state(
@@ -656,11 +948,13 @@ def main() -> int:
     err6, t_k, t_p, t_l, b_ms, b_by, _ = time_serving_state(
         torch, F, ref, kernel, cache, pos, cfg, gen, "bf16", card)
     max_err = max(max_err, err6)
-    profile_step(torch, model, eng.runner.params, cache, fed_t, pos + 1, ps,
-                 "full-width bf16", card)
+    run_params = eng.runner.params
+    profile_step(torch, lambda p_: model.decode_step(
+        run_params, cache, fed_t, p_, page_size=ps), pos + 1,
+        "full-width bf16", card)
 
     # -- 7. serve under q4 weights + int8 pages ---------------------------
-    del eng, cache, clone, got, want
+    del eng, cache, clone, got, want, run_params
     torch.cuda.empty_cache()
     qp = QuantPolicy(weights="q4", kv_dtype="int8")
     t0 = time.perf_counter()
@@ -711,13 +1005,58 @@ def main() -> int:
     err8, t_k8, t_p8, t_l8, b8_ms, b8_by, t_bf16 = time_serving_state(
         torch, F, ref, kernel, cache, pos, cfg, gen, "int8", card)
     err_i8 = max(err_i8, err8)
-    profile_step(torch, model, qparams, cache, fed_t, pos + 1, ps,
-                 "full-width q4 + int8", card)
+    profile_step(torch, lambda p_: model.decode_step(
+        qparams, cache, fed_t, p_, page_size=ps), pos + 1,
+        "full-width q4 + int8", card)
+
+    # -- 9.-11. the bucket path's kernels vs plain versions, timed ------
+    del eng, cache, clone, got, want, qparams, model
+    torch.cuda.empty_cache()
+    err_da = check_decode_kernel(torch, ref, da.decode_attention, gen)
+    err_rs = check_scan_kernel(torch, ref, rs.rglru_scan, gen)
+    da_times = time_decode_kernel(torch, F, ref, da.decode_attention, gen,
+                                  card)
+    t_rs, t_rs_p, b_rs, b_rs_by = time_scan_kernel(torch, ref,
+                                                   rs.rglru_scan, gen, card)
+    torch.cuda.empty_cache()
+
+    # -- 12. serve full-width RecurrentGemma-2B (bucket engine) ----------
+    model, eng, prompts, counts_rg, calls = serve_recurrentgemma(
+        torch, np, kernels, card)
+    n_attn = model.kinds.count("attn")
+    n_rglru = model.kinds.count("rglru")
+    launches_da = counts_rg["decode_attention"]
+    launches_rs = counts_rg["rglru_scan"]
+    if calls["decode"] <= 0 or launches_da != n_attn * calls["decode"]:
+        fail(f"decode_attention launches {launches_da} != {n_attn} x "
+             f"{calls['decode']} decode steps")
+    if calls["prefill"] <= 0 or launches_rs != n_rglru * calls["prefill"]:
+        fail(f"rglru_scan launches {launches_rs} != {n_rglru} x "
+             f"{calls['prefill']} prefill calls")
+    for name in ("paged_decode_attention", "q4_gemm"):
+        if counts_rg[name]:
+            fail(f"bucket serving launched {name} {counts_rg[name]} times")
+    print(f"[rg] launches: decode_attention {launches_da} = {n_attn} x "
+          f"{calls['decode']} decode steps; rglru_scan {launches_rs} = "
+          f"{n_rglru} x {calls['prefill']} prefill calls")
+
+    # -- 13. parity on the card, profile ---------------------------------
+    by_kernel = rg_parity(torch, model, eng.runner.params, prompts, card)
+    # the contiguous kernel is two launches: the splits, then the merge
+    da_dev = sum(ms for name_, ms in by_kernel.items()
+                 if "decode_attn_split_kernel" in name_
+                 or "decode_attn_combine_kernel" in name_)
+    if da_dev <= 0:
+        fail("the profile shows no device time of decode_attention")
+    print(f"[profile] decode_attention in the RecurrentGemma decode step: "
+          f"{da_dev * 1e3:.1f} us/step over {n_attn} calls "
+          f"({da_dev / n_attn * 1e3:.1f} us a call) — {card}")
 
     # one decode-step layer's 7 projections at M=8: mean per call
     def q4_mean(j):
         return sum(q4_times[s + (8,)][j] for s in Q4_PROJ.values()) / 7
 
+    t_da, t_da_p, t_da_l, b_da, b_da_by = da_times[(4, 544)]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     paged_src = "src/repro_torch/csrc/paged_decode_attention.cu"
     print(json.dumps({"kernels": [{
@@ -760,6 +1099,31 @@ def main() -> int:
         else "operations",
         "library_ms": None,
         "dense_bf16_matmul_ms": q4_mean(2),
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:71",
+        "launches": launches_da,
+        "max_abs_err": err_da,
+        "ms": t_da,
+        "plain_ms": t_da_p,
+        "bound_ms": b_da,
+        "bound_by": b_da_by,
+        "library_ms": t_da_l,
+        "decode_step_device_ms_per_call": da_dev / n_attn,
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:46",
+        "launches": launches_rs,
+        "max_abs_err": err_rs,
+        "ms": t_rs,
+        "plain_ms": t_rs_p,
+        "bound_ms": b_rs,
+        "bound_by": b_rs_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

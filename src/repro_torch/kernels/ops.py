@@ -11,8 +11,15 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
+from .decode_attention import decode_attention as _decode_kernel
 from .decode_attention import paged_decode_attention as _paged_kernel
 from .q4_gemm import q4_gemm as _q4_kernel
+from .rglru_scan import rglru_scan as _rglru_kernel
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ("auto", "ref"):
+        raise ValueError(f"impl={impl!r}: choose 'auto' or 'ref'")
 
 
 def q4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -57,8 +64,7 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     Kernel launches are counted on
     ``repro_torch.kernels.decode_attention.paged_decode_attention.launches``.
     """
-    if impl not in ("auto", "ref"):
-        raise ValueError(f"impl={impl!r}: choose 'auto' or 'ref'")
+    _check_impl(impl)
     B, one, Hq, D = q.shape
     Hkv = k_pool.shape[1]
     G = Hq // Hkv
@@ -80,3 +86,47 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             window, softcap=softcap, **scales)
     # a no-op on the kernel's output, which is already in q.dtype
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len=None, *, kv_positions=None, q_pos=None,
+                         window: int = 0, softcap: float = 0.0,
+                         impl: str = "auto") -> torch.Tensor:
+    """Flash-decoding for one token with GQA over a contiguous cache.
+
+    q (B,1,Hq,D); k,v (B,S,Hkv,D) -> out (B,1,Hq,D) in ``q.dtype``; query
+    head h reads kv head h // G.  ``kv_len`` (host int) masks slots
+    ``>= kv_len``, the TPU kernel's form; ``kv_positions`` ((S,) int32,
+    -1 = empty) with ``q_pos`` (host int) is the ring cache's form, the
+    mask of ``flash_attention(..., q_offset=q_pos, kv_positions=...)``.
+    See ``kernels.decode_attention.decode_attention`` for both.
+
+    Kernel launches are counted on
+    ``repro_torch.kernels.decode_attention.decode_attention.launches``.
+    """
+    _check_impl(impl)
+    B, one, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qk = q.reshape(B, Hkv, Hq // Hkv, D)
+    kw = dict(kv_positions=kv_positions, q_pos=q_pos, window=window,
+              softcap=softcap)
+    if impl == "ref" or not q.is_cuda:
+        out = _ref.decode_attention_ref(qk, k, v, kv_len, **kw)
+    else:
+        out = _decode_kernel(qk, k, v, kv_len, **kw)
+    # a no-op on the kernel's output, which is already in q.dtype
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def rglru_linear_scan(a: torch.Tensor, u: torch.Tensor, h0=None, *,
+                      impl: str = "auto") -> torch.Tensor:
+    """RG-LRU recurrence ``h[t] = a[t] * h[t-1] + u[t]`` over (B, T, W),
+    ``h0`` (B, W) folded into step 0; float32 in and out.
+
+    Kernel launches are counted on
+    ``repro_torch.kernels.rglru_scan.rglru_scan.launches``.
+    """
+    _check_impl(impl)
+    if impl == "ref" or not a.is_cuda:
+        return _ref.rglru_scan_ref(a, u, h0)
+    return _rglru_kernel(a, u, h0)

@@ -66,3 +66,59 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p, v.float())
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len=None, *, kv_positions=None, q_pos=None,
+                         window: int = 0, softcap: float = 0.0,
+                         ) -> torch.Tensor:
+    """Contiguous-cache flash-decoding: the plain version of
+    ``repro_torch.kernels.decode_attention.decode_attention``.
+
+    q (B,H,G,D) one token per sequence; k,v (B,S,H,D) the cache.  Slot
+    ``s`` has position ``kv_positions[s]`` (the ring cache, -1 = empty)
+    or ``s``; with ``kv_len`` the query sits at ``kv_len - 1``, else at
+    ``q_pos``.  A slot is valid when its position is ``>= 0`` and at most
+    the query's, and, for ``window > 0``, more than ``query - window``.
+    Masked scores take the finite ``NEG_INF``, so a call with nothing
+    valid gives the mean of V (as the Pallas kernel does).  Returns
+    (B,H,G,D) float32.
+    """
+    B, H, G, D = q.shape
+    S = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    if kv_positions is None:
+        kpos = torch.arange(S, device=q.device)
+        q_pos = int(kv_len) - 1
+    else:
+        kpos = kv_positions.to(device=q.device, dtype=torch.long)
+        q_pos = int(q_pos)
+    valid = (kpos >= 0) & (kpos <= q_pos)
+    if window > 0:
+        valid &= kpos > q_pos - window
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.float())
+
+
+def rglru_scan_ref(a: torch.Tensor, u: torch.Tensor,
+                   h0=None) -> torch.Tensor:
+    """``h[:, t] = a[:, t] * h[:, t-1] + u[:, t]`` over axis 1 of (B,T,W),
+    ``h0`` (B,W) folded into step 0 as ``u[:, 0] += a[:, 0] * h0``: the
+    plain version of ``repro_torch.kernels.rglru_scan.rglru_scan``.
+
+    A sequential loop over T, each step a product and then a sum, each
+    rounded to float32: the kernel's order, so the two agree bit for bit
+    (the reference's associative scan differs in rounding only)."""
+    if h0 is not None:
+        u = u.clone()
+        u[:, 0] += a[:, 0] * h0
+    h = torch.empty_like(u)
+    prev = torch.zeros_like(u[:, 0])
+    for t in range(u.shape[1]):
+        torch.add(a[:, t] * prev, u[:, t], out=h[:, t])
+        prev = h[:, t]
+    return h

@@ -1,10 +1,17 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-The port's counterpart of ``repro.launch.serve --engine continuous``:
-brings up the paged continuous-batching engine on a REDUCED variant of
-the architecture (float32, as the reference serves reduced configs),
-with random weights drawn from a fixed seed, serves a batch of byte-level
-prompts and prints the completions and the throughput report.
+The port's counterpart of ``repro.launch.serve --engine bucket|continuous``:
+brings up a serving engine on a REDUCED variant of the architecture
+(float32, as the reference serves reduced configs), with random weights
+drawn from a fixed seed, serves a batch of byte-level prompts and
+prints the completions and the throughput report.
+
+``--engine bucket`` (the default, as in the reference) is the
+length-bucket baseline over the ring cache; it serves every ported
+arch, the hybrid RG-LRU stack of ``recurrentgemma-2b`` included (the
+contiguous decode and RG-LRU scan kernels on the card).
+``--engine continuous`` is the paged continuous-batching engine, for
+uniform self-attention stacks.
 
 It runs on the GPU (``--device cuda``, the default) and raises when no
 GPU is present; ``--device cpu`` runs it on the CPU.  ``--arch tiny`` is
@@ -13,14 +20,16 @@ yet, so ``--warmup-steps`` must stay 0.
 
 ``--quant q4`` serves Q4_0 attention/MLP projections (the hand-written
 Q4_0 GEMM on the card) and ``--kv-dtype int8`` int8 KV pages with
-per-row scales (the int8 variant of the paged decode kernel).
+per-row scales (the int8 variant of the paged decode kernel); both go
+through the continuous engine.
 
 Examples:
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous
-    python -m repro_torch.launch.serve --arch qwen3-1.7b --quant q4 \\
-        --kv-dtype int8
-    python -m repro_torch.launch.serve --arch gemma3-1b --max-running 4 \\
-        --page-size 16 --prefill-chunk 8 --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous \\
+        --quant q4 --kv-dtype int8
+    python -m repro_torch.launch.serve --arch gemma3-1b --engine continuous \\
+        --max-running 4 --page-size 16 --prefill-chunk 8 --device cpu
 """
 
 import argparse
@@ -37,36 +46,45 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--engine", choices=("continuous",),
-                    default="continuous",
-                    help="serving engine (the port has the paged "
-                         "continuous-batching engine only)")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="bucket engine: requests per length bucket")
+    ap.add_argument("--engine", choices=("bucket", "continuous"),
+                    default="bucket",
+                    help="serving engine: the length-bucket baseline over "
+                         "the ring cache, or the paged continuous-batching "
+                         "engine")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; no GPU "
                          "raises instead of falling back to the CPU)")
     ap.add_argument("--max-running", type=int, default=4,
-                    help="running-batch slots")
+                    help="continuous engine: running-batch slots")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="KV page token slots")
+                    help="continuous engine: KV page token slots")
     ap.add_argument("--n-pages", type=int, default=None,
-                    help="KV pool pages (default: no-preemption sizing)")
+                    help="continuous engine: KV pool pages (default: "
+                         "no-preemption sizing)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="prefill at most this many prompt tokens per "
-                         "step (default: one-shot)")
+                    help="continuous engine: prefill at most this many "
+                         "prompt tokens per step (default: one-shot)")
     ap.add_argument("--no-prefix-cache", action="store_true",
-                    help="disable prompt-prefix page sharing")
+                    help="continuous engine: disable prompt-prefix "
+                         "page sharing")
     ap.add_argument("--quant", choices=("none", "q4"), default="none",
-                    help="weight format: 'q4' packs attention/MLP "
-                         "projections to Q4_0 at load")
+                    help="continuous engine: weight format — 'q4' packs "
+                         "attention/MLP projections to Q4_0 at load")
     ap.add_argument("--kv-dtype", choices=("fp32", "int8"),
                     default="fp32",
-                    help="KV page format: 'int8' stores quantized pages "
-                         "with per-row scales ('fp32' keeps the model's "
-                         "dtype)")
+                    help="continuous engine: KV page format — 'int8' "
+                         "stores quantized pages with per-row scales "
+                         "('fp32' keeps the model's dtype)")
     ap.add_argument("--warmup-steps", type=int, default=0,
                     help="LM warm-up training steps (not ported yet: "
                          "only 0 is accepted)")
     args = ap.parse_args(argv)
+    if args.engine == "bucket" and (args.quant != "none"
+                                    or args.kv_dtype != "fp32"):
+        ap.error("--quant/--kv-dtype serve through the paged engine; "
+                 "use --engine continuous")
     if args.warmup_steps:
         ap.error("--warmup-steps: training is not ported yet; use 0")
 
@@ -76,7 +94,7 @@ def main(argv=None) -> int:
     from ..data.tokenizer import ByteTokenizer
     from ..models import build_model, reduced_config
     from ..quant import QuantPolicy
-    from ..serving import (ContinuousServingEngine, Request,
+    from ..serving import (ContinuousServingEngine, Request, ServingEngine,
                            throughput_report)
     from ..serving.runner import resolve_device
     from ..serving.sampler import SamplingParams
@@ -111,16 +129,21 @@ def main(argv=None) -> int:
     if args.quant != "none" or args.kv_dtype != "fp32":
         quant = QuantPolicy(weights=args.quant, kv_dtype=args.kv_dtype)
         print(f"quant: weights={quant.weights} kv_dtype={quant.kv_dtype}")
-    eng = ContinuousServingEngine(
-        model, params, max_len=max_len, max_running=args.max_running,
-        page_size=args.page_size, n_pages=args.n_pages,
-        prefill_chunk=args.prefill_chunk,
-        prefix_cache=not args.no_prefix_cache, quant=quant, device=device)
-    comps = eng.generate(reqs)
-    st = eng.pool.stats
-    print(f"kv pool: {st['fresh_pages']} pages allocated, "
-          f"{st['shared_pages']} shared, {st['cow_copies']} CoW, "
-          f"{st['cached_tokens']} prompt tokens served from cache")
+    if args.engine == "continuous":
+        eng = ContinuousServingEngine(
+            model, params, max_len=max_len, max_running=args.max_running,
+            page_size=args.page_size, n_pages=args.n_pages,
+            prefill_chunk=args.prefill_chunk,
+            prefix_cache=not args.no_prefix_cache, quant=quant,
+            device=device)
+        comps = eng.generate(reqs)
+        st = eng.pool.stats
+        print(f"kv pool: {st['fresh_pages']} pages allocated, "
+              f"{st['shared_pages']} shared, {st['cow_copies']} CoW, "
+              f"{st['cached_tokens']} prompt tokens served from cache")
+    else:
+        eng = ServingEngine(model, params, max_len=max_len, device=device)
+        comps = eng.generate(reqs, max_batch=args.max_batch)
     for c, p in zip(comps, prompts):
         print(f"[{c.uid}] {p!r} -> {tok.decode(c.tokens)!r}")
     rep = throughput_report(comps, **eng.last_phase_s)

@@ -3,10 +3,11 @@
 Counterpart of ``repro.models.attention``: online softmax over KV
 chunks (a Python loop in place of ``lax.scan``) keeps the score block
 at O(Sq·chunk), GQA folds the query-head group into the einsum, and
-sliding windows, causal masking, a query position offset, a global
-``kv_len`` and a ``tanh`` logit softcap ride along as masks.  Prefill
-and resumed-prefill attention of the paged serving path run through
-here; decode goes to the paged kernel (``repro_torch.kernels.ops``).
+sliding windows, causal masking, query and key position offsets, a
+global ``kv_len``, explicit per-slot key positions (ring caches; < 0 =
+empty) and a ``tanh`` logit softcap ride along as masks.  Prefill and
+resumed-prefill attention of both serving paths run through here;
+decode goes to the decode kernels (``repro_torch.kernels.ops``).
 
 This is plain tensor code, not a kernel: the reference computes it with
 jnp outside any Pallas kernel.  A hand-written prefill kernel is later
@@ -26,7 +27,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def _chunk_mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
-                window: int, kv_len: Optional[int]) -> torch.Tensor:
+                window: int, kv_len: Optional[int],
+                kpos_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(Sq, C) validity mask. window: 0 = unlimited."""
     m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
                    device=qpos.device)
@@ -36,20 +38,26 @@ def _chunk_mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
         m &= kpos[None, :] > qpos[:, None] - window
     if kv_len is not None:
         m &= kpos[None, :] < kv_len
+    if kpos_valid is not None:
+        m &= kpos_valid[None, :]
     return m
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
-                    kv_len: Optional[int] = None, chunk: int = 512,
-                    softcap: float = 0.0,
+                    kv_offset: int = 0, kv_len: Optional[int] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    chunk: int = 512, softcap: float = 0.0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Blockwise attention.
 
     q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); Hq % Hkv == 0.  ``q_offset`` is
-    the absolute position of q[0]; ``kv_len`` the number of valid kv
-    tokens (positions >= kv_len are masked).  Scores and the softmax
-    state are float32; the output is cast to ``q.dtype``.
+    the absolute position of q[0]; ``kv_offset`` that of k[0];
+    ``kv_len`` the number of valid kv tokens (positions >= kv_len are
+    masked).  ``kv_positions`` (Skv,) gives every kv slot's absolute
+    position (ring caches): entries < 0 are masked, and it overrides the
+    ``kv_offset`` arithmetic.  Scores and the softmax state are float32;
+    the output is cast to ``q.dtype``.
     """
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -60,9 +68,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = int(window)
     chunk = min(chunk, Skv)
     n_chunks = -(-Skv // chunk)
-    if n_chunks * chunk != Skv and kv_len is None:
-        kv_len = Skv          # the zero padding below must stay masked
+    pad = n_chunks * chunk - Skv
     dev = q.device
+    if pad and kv_positions is not None:
+        # padded slots are empty ring slots
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=-1)
+    elif pad and kv_len is None:
+        # the zero padding below must stay masked: this block's valid
+        # range ends at kv_offset + Skv
+        kv_len = kv_offset + Skv
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     qpos = q_offset + torch.arange(Sq, device=dev)
     out = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
@@ -75,12 +90,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if pad:
             kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, pad))
             vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, pad))
-        kpos = ci * chunk + torch.arange(chunk, device=dev)
+        if kv_positions is not None:
+            kpos = kv_positions[ci * chunk:(ci + 1) * chunk].to(dev).long()
+            kvalid = kpos >= 0
+        else:
+            kpos = kv_offset + ci * chunk + torch.arange(chunk, device=dev)
+            kvalid = None
         s = torch.einsum("bqhgd,bchd->bqhgc", qg, kc) * scale
         if softcap:
             s = torch.tanh(s / softcap) * softcap
         mask = _chunk_mask(qpos, kpos, causal=causal, window=window,
-                           kv_len=kv_len)
+                           kv_len=kv_len, kpos_valid=kvalid)
         s = torch.where(mask[None, :, None, None, :], s,
                         torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))

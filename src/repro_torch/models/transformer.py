@@ -1,56 +1,79 @@
-"""Transformer: the paged serving subset of ``repro.models.transformer``.
+"""Transformer: the serving subset of ``repro.models.transformer``.
 
 ``build_model(cfg)`` returns a :class:`Model` exposing
 
     init(gen)                                  -> params
+    init_cache(B, max_len, cache_len=None)     -> ring cache (zeros)
     init_cache(B, max_len, page_size=..., kv_dtype="fp32"|"int8")
                                                -> paged cache (zeros)
+    prefill(params, batch, cache)              -> (logits, cache)
     prefill_paged(params, batch, cache, slot, plen, page_size=...)
                                                -> (logits, cache)
-    decode_step(params, cache, tokens, pos, page_size=...)
+    decode_step(params, cache, tokens, pos[, page_size=...])
                                                -> (logits, cache)
 
-for uniform dense self-attention stacks (every layer "attn" with an MLP
-FFN: Qwen3, Gemma3, the bench-tiny model).  Per-layer sliding window and
-RoPE base stay metadata (``cfg.layer_windows`` / ``cfg.layer_thetas``),
-so Gemma3's 5:1 local:global pattern is one uniform stack.
+for decoder stacks of self-attention ("attn") and RG-LRU ("rglru")
+layers with an MLP FFN: Qwen3, Gemma3, the bench-tiny model and
+RecurrentGemma.  Per-layer sliding window and RoPE base stay metadata
+(``cfg.layer_windows`` / ``cfg.layer_thetas``), so Gemma3's 5:1
+local:global pattern is one uniform stack.
 
-Parameters are a dict tree with the reference's keys and layout: uniform
-layer stacks keep a leading L axis, projections are ``(d_in, d_out)``
-applied as ``x @ w``.  ``repro_torch.models.weights`` converts the
-reference's ``Model.init`` tree, so both packages compute the same
-function in the tests.
+Parameters are a dict tree with the reference's keys and layout, in
+the reference's three forms: a uniform stack keeps one layer dict with
+a leading L axis; a periodic pattern of at least two periods
+(RecurrentGemma's (R, R, A)) keeps ``{"blocks": [...], "tail": [...]}``
+with one dict per pattern position stacked over the full periods and
+the remainder layers unstacked; any other pattern is a list of layer
+dicts.  Projections are ``(d_in, d_out)`` applied as ``x @ w``.
+``repro_torch.models.weights`` converts the reference's ``Model.init``
+tree, so both packages compute the same function in the tests.  Where
+the reference scans over stacked layers (``_run_uniform`` /
+``_run_blocks`` / ``_run_pattern``), the port runs one Python loop over
+the layers of any form (``Model._layer_views``).
 
-The paged cache (see :meth:`Model.init_cache`) is a list of per-layer
-page-pool buffers.  Where the reference returns new buffers from a
-donated jit call, this port writes the touched rows **in place**
-(``index_copy_``); the cache dict is returned for API parity.
+Two caches, both updated **in place** (where the reference returns new
+buffers from a donated jit call); each call returns the cache dict for
+API parity:
+
+* the ring cache of the bucket engine (``init_cache`` without
+  ``page_size``), in the same three forms as the parameters: per
+  attention layer ``k``/``v`` (B, M, Hkv, D) and ``pos`` (M,) int32
+  (slot = position mod M, -1 = empty), per RG-LRU layer ``h`` (B, W)
+  float32 and the conv tail.  ``prefill`` fills it; the scalar-position
+  ``decode_step`` reads it through ``kernels.ops.gqa_decode_attention``
+  (the contiguous decode kernel on the card), and every prefill runs
+  the RG-LRU recurrence through ``kernels.ops.rglru_linear_scan``;
+* the paged cache of the continuous engine (see :meth:`Model.init_cache`),
+  a list of per-layer page-pool buffers written row by row
+  (``index_copy_``), for uniform self-attention stacks only (as in the
+  reference).
 
 Quantized serving: ``Model.qmm`` (default ``None``) is the reference's
 quantized-matmul hook.  ``ModelRunner`` installs
 ``repro_torch.quant.make_qmm`` there under ``--quant q4``, and every
-attention and MLP projection then goes through it (the Q4_0 kernel on
-the card).  ``init_cache(kv_dtype="int8")`` allocates int8 pages with
-per-(row, kv head) f32 scales (``repro_torch.quant.kv_int8``).
+attention and MLP projection of an attention layer then goes through it
+(the Q4_0 kernel on the card).  ``init_cache(kv_dtype="int8")``
+allocates int8 pages with per-(row, kv head) f32 scales
+(``repro_torch.quant.kv_int8``).
 
-Not part of this slice (each raises ``NotImplementedError`` naming the
-arch or feature): the ring-buffer cache and its ``prefill`` /
-scalar-position ``decode_step``, MoE, recurrent / SSM and cross-attention
-layers, encoder-decoder stacks and ``verify_step``.
+Not part of the port yet (each raises ``NotImplementedError`` naming
+the arch or feature): MoE, SSD and cross-attention layers,
+encoder-decoder stacks and ``verify_step``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..kernels.ops import paged_gqa_decode_attention
+from ..kernels.ops import gqa_decode_attention, paged_gqa_decode_attention
 from ..quant.kv_int8 import dequantize_rows, quantize_rows
 from .attention import flash_attention
 from .common import (Params, dense_init, embed_init, mlp, proj, rms_norm,
                      unembed)
 from .config import ModelConfig
+from .recurrent import RGLRUState, init_rglru_block, rglru_block
 
 ATTN_CHUNK = 512
 
@@ -102,6 +125,23 @@ def _init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: tuple) -> Params:
     return {"w_up": dense_init(gen, d, f, cfg.dtype, device=dev, lead=lead),
             "w_down": dense_init(gen, f, d, cfg.dtype, device=dev,
                                  lead=lead)}
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                lead: tuple = ()) -> Params:
+    """One layer's parameters ("attn" or "rglru", each with an MLP),
+    stacked over ``lead``."""
+    dev = gen.device
+    p: Params = {"ln1": _init_norm(cfg, cfg.d_model, dev, lead)}
+    if kind == "attn":
+        p["attn"] = _init_attn(gen, cfg, lead)
+    else:
+        p["rglru"] = init_rglru_block(gen, cfg.d_model,
+                                      cfg.lru_width or cfg.d_model,
+                                      cfg.ssm_conv, cfg.dtype, lead)
+    p["ln2"] = _init_norm(cfg, cfg.d_model, dev, lead)
+    p["mlp"] = _init_mlp(gen, cfg, lead)
+    return p
 
 
 # ----------------------------------------------------------------------
@@ -211,33 +251,86 @@ def _paged_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         v_scale=cache.get("v_scale"))
 
 
+def _write_cache(ck: torch.Tensor, cv: torch.Tensor, cp: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor) -> None:
+    """Ring-buffer write, in place.  ck/cv (B,M,H,D), cp (M,) int32,
+    k/v (B,S,H,D) at absolute ``positions`` (S,): slot = position mod M.
+    A prompt of S >= M tokens keeps only its last M."""
+    M = ck.shape[1]
+    if k.shape[1] >= M:
+        k, v, positions = k[:, -M:], v[:, -M:], positions[-M:]
+    slots = positions % M
+    ck.index_copy_(1, slots, k)
+    cv.index_copy_(1, slots, v)
+    cp.index_copy_(0, slots, positions.to(cp.dtype))
+
+
+def _ring_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, positions: torch.Tensor, window: int,
+               cache: Dict[str, torch.Tensor],
+               ring: Dict[str, Any]) -> torch.Tensor:
+    """Ring-cache write + attention read, for ONE layer.
+
+    Prefill (S > 1): the cache was empty, so attending over the fresh
+    K/V is the same maths.  Decode (S == 1): the scalar position
+    ``ring['q_pos']`` attends over the whole ring through its position
+    array (causal, window, empty slots masked) with the contiguous
+    decode kernel on CUDA tensors (``ring['impl']="ref"``: the plain
+    version), the reference's ``flash_attention(..., q_offset=pos,
+    kv_positions=cache['pos'])``."""
+    _write_cache(cache["k"], cache["v"], cache["pos"], k, v, positions)
+    if q.shape[1] > 1:
+        return flash_attention(q, k, v, causal=True, window=window,
+                               chunk=ATTN_CHUNK,
+                               softcap=cfg.attn_logit_softcap)
+    return gqa_decode_attention(
+        q, cache["k"], cache["v"], kv_positions=cache["pos"],
+        q_pos=ring["q_pos"], window=window,
+        softcap=cfg.attn_logit_softcap, impl=ring["impl"])
+
+
 def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
                positions: torch.Tensor, theta: float, window: int,
-               cache: Dict[str, torch.Tensor],
-               paged: Dict[str, Any], qmm=None) -> torch.Tensor:
+               cache: Dict[str, torch.Tensor], *,
+               paged: Optional[Dict[str, Any]],
+               ring: Optional[Dict[str, Any]], qmm=None) -> torch.Tensor:
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, ap, x, x, qmm)
     q = _rope(q, positions, theta)
     k = _rope(k, positions, theta)
-    out = _paged_attn(cfg, q, k, v, window, cache, paged)
+    if paged is not None:
+        out = _paged_attn(cfg, q, k, v, window, cache, paged)
+    else:
+        out = _ring_attn(cfg, q, k, v, positions, window, cache, ring)
     return proj(out.reshape(B, S, -1), ap["w_o"], qmm)
 
 
-def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-         qmm=None) -> torch.Tensor:
-    return mlp(lp["mlp"], x, cfg.act, qmm)
-
-
-def _layer_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
                    positions: torch.Tensor, theta: float, window: int,
-                   cache: Dict[str, Any], paged: Dict[str, Any],
+                   cache: Dict[str, Any], *,
+                   paged: Optional[Dict[str, Any]] = None,
+                   ring: Optional[Dict[str, Any]] = None,
                    qmm=None) -> torch.Tensor:
-    """One pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
+    """One pre-norm block: x + mixer(norm(x)), then x + mlp(norm(x)).
+    The mixer is self-attention or the RG-LRU block, whose new state is
+    copied into the cache.  As in the reference, only attention layers
+    take the quantized-matmul hook."""
     h = rms_norm(x, lp["ln1"]["g"], cfg.norm_eps)
-    x = x + _self_attn(cfg, lp["attn"], h, positions, theta, window,
-                       cache["self"], paged, qmm)
+    if kind == "attn":
+        x = x + _self_attn(cfg, lp["attn"], h, positions, theta, window,
+                           cache["self"], paged=paged, ring=ring, qmm=qmm)
+    else:
+        st = cache["rglru"]
+        y, new = rglru_block(lp["rglru"], h, state=RGLRUState(**st),
+                             single_step=ring["single_step"],
+                             impl=ring["impl"])
+        st["h"].copy_(new.h)
+        st["conv"].copy_(new.conv)
+        x = x + y
+        qmm = None
     h2 = rms_norm(x, lp["ln2"]["g"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h2, qmm)
+    return x + mlp(lp["mlp"], h2, cfg.act, qmm)
 
 
 # ----------------------------------------------------------------------
@@ -245,29 +338,43 @@ def _layer_forward(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 # ----------------------------------------------------------------------
 
 class Model:
-    """Uniform dense self-attention stack over a ModelConfig."""
+    """Self-attention / RG-LRU decoder stack over a ModelConfig."""
 
     def __init__(self, cfg: ModelConfig) -> None:
         kinds = cfg.layer_kinds
-        if cfg.is_encoder_decoder or any(k != "attn" for k in kinds):
+        other = sorted(set(kinds) - {"attn", "rglru"})
+        if cfg.is_encoder_decoder or other:
             raise NotImplementedError(
                 f"arch {cfg.name!r} has layer kinds {sorted(set(kinds))} "
                 f"(encoder-decoder={cfg.is_encoder_decoder}); the port "
-                "serves uniform self-attention stacks only")
+                "serves self-attention and RG-LRU decoder stacks only")
         if cfg.n_experts:
             raise NotImplementedError(
                 f"arch {cfg.name!r}: MoE layers are not ported yet")
         self.cfg = cfg
+        self.kinds = kinds
+        self.uniform = cfg.uniform
+        # a periodic pattern of at least two periods (RecurrentGemma's
+        # (R, R, A)) keeps its layers as super-blocks plus a tail
+        self.block_period = 0
+        if not self.uniform:
+            p = len(cfg.block_pattern)
+            if p and cfg.n_layers >= 2 * p:
+                self.block_period = p
+        self.n_full_blocks = (cfg.n_layers // self.block_period
+                              if self.block_period else 0)
+        self.n_tail = (cfg.n_layers - self.n_full_blocks * self.block_period
+                       if self.block_period else cfg.n_layers)
         #: quantized-matmul hook (``repro_torch.quant.make_qmm``), set by
         #: ``ModelRunner`` under ``--quant q4``; None = dense ``x @ w``
         self.qmm = None
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
-        """Random parameters drawn from ``gen``, on ``gen.device``."""
+        """Random parameters drawn from ``gen``, on ``gen.device``, in the
+        reference's layout (see the module docstring)."""
         cfg = self.cfg
         dev = gen.device
-        lead = (cfg.n_layers,)
         params: Params = {
             "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                 cfg.dtype, device=dev),
@@ -276,21 +383,59 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                            cfg.dtype, device=dev)
-        params["layers"] = {
-            "ln1": _init_norm(cfg, cfg.d_model, dev, lead),
-            "attn": _init_attn(gen, cfg, lead),
-            "ln2": _init_norm(cfg, cfg.d_model, dev, lead),
-            "mlp": _init_mlp(gen, cfg, lead),
-        }
+        if self.uniform:
+            params["layers"] = _init_layer(gen, cfg, self.kinds[0],
+                                           (cfg.n_layers,))
+        elif self.block_period:
+            p_, nb = self.block_period, self.n_full_blocks
+            params["layers"] = {
+                "blocks": [_init_layer(gen, cfg, self.kinds[j], (nb,))
+                           for j in range(p_)],
+                "tail": [_init_layer(gen, cfg, self.kinds[nb * p_ + t])
+                         for t in range(self.n_tail)]}
+        else:
+            params["layers"] = [_init_layer(gen, cfg, kind)
+                                for kind in self.kinds]
         return params
 
     # ------------------------------------------------------------------
+    def _layer_cache(self, kind: str, batch: int, cache_len: int,
+                     device: Any, lead: tuple = ()) -> Dict[str, Any]:
+        cfg = self.cfg
+        if kind == "attn":
+            shape = lead + (batch, cache_len, cfg.n_kv_heads,
+                            cfg.resolved_head_dim)
+            return {"self": {
+                "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "pos": torch.full(lead + (cache_len,), -1,
+                                  dtype=torch.int32, device=device)}}
+        width = cfg.lru_width or cfg.d_model
+        return {"rglru": {
+            "h": torch.zeros(lead + (batch, width), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, width),
+                                dtype=cfg.dtype, device=device)}}
+
     def init_cache(self, batch: int, max_len: int, *,
+                   cache_len: Optional[int] = None,
                    page_size: Optional[int] = None,
                    n_pages: Optional[int] = None,
                    kv_dtype: str = "fp32",
                    device: Any = "cuda") -> Dict[str, Any]:
-        """Zero **paged** cache for the continuous-batching engine.
+        """Zero cache on ``device``.
+
+        Without ``page_size``: the **ring** cache of the bucket engine,
+        in the parameters' layout (uniform stack, super-blocks + tail, or
+        list).  Each attention layer holds ``k``/``v`` (batch, M, Hkv, D)
+        in ``cfg.dtype`` and ``pos`` (M,) int32 (-1 = empty slot), with
+        M = ``min(cache_len or max_len, max_len)``: ``cache_len <
+        max_len`` makes it a sliding ring.  Each RG-LRU layer holds
+        ``h`` (batch, W) float32 and ``conv`` (batch, conv_width-1, W).
+        ``length`` is a 0-d int32 tensor (tokens seen).
+
+        With ``page_size``: the **paged** cache of the continuous engine,
+        uniform self-attention stacks only (as in the reference):
 
         * ``layers[i]['self']['k'/'v']`` — (n_pages * page_size, Hkv, D)
           page-pool buffer of layer ``i`` in ``cfg.dtype`` (page 0 is
@@ -304,10 +449,8 @@ class Model:
         ``kv_dtype="int8"`` (``--kv-dtype int8``) makes ``k``/``v`` int8
         code buffers and adds ``k_scale``/``v_scale`` ((rows, Hkv) f32,
         one scale per token row per kv head, ``repro_torch.quant.kv_int8``);
-        ``"fp32"`` keeps the pages in ``cfg.dtype``.
-
-        ``batch`` is the number of running-batch *slots*.  The ring
-        cache (``page_size=None``) is not ported yet.
+        ``"fp32"`` keeps the pages in ``cfg.dtype``.  ``batch`` is the
+        number of running-batch *slots*.
         """
         cfg = self.cfg
         if kv_dtype != "fp32" and page_size is None:
@@ -317,9 +460,11 @@ class Model:
             raise ValueError(f"kv_dtype={kv_dtype!r}: choose 'fp32' or "
                              "'int8'")
         if page_size is None:
+            return self._init_ring_cache(batch, max_len, cache_len, device)
+        if not (self.uniform and self.kinds[0] == "attn"):
             raise NotImplementedError(
-                "the ring-buffer KV cache is not ported yet; pass "
-                "page_size=... for the paged cache")
+                "paged KV cache requires a uniform self-attention stack "
+                f"(arch {cfg.name!r} has kinds {self.kinds[:4]})")
         max_pages = -(-max_len // page_size)
         if n_pages is None:
             n_pages = 1 + batch * max_pages       # page 0 is scratch
@@ -344,22 +489,68 @@ class Model:
             "layers": [layer() for _ in range(cfg.n_layers)],
         }
 
+    def _init_ring_cache(self, batch: int, max_len: int,
+                         cache_len: Optional[int],
+                         device: Any) -> Dict[str, Any]:
+        cfg = self.cfg
+        cl = min(cache_len or max_len, max_len)
+        cache: Dict[str, Any] = {
+            "length": torch.zeros((), dtype=torch.int32, device=device)}
+        if self.uniform:
+            cache["layers"] = self._layer_cache(self.kinds[0], batch, cl,
+                                                device, (cfg.n_layers,))
+        elif self.block_period:
+            p_, nb = self.block_period, self.n_full_blocks
+            cache["layers"] = {
+                "blocks": [self._layer_cache(self.kinds[j], batch, cl,
+                                             device, (nb,))
+                           for j in range(p_)],
+                "tail": [self._layer_cache(self.kinds[nb * p_ + t], batch,
+                                           cl, device)
+                         for t in range(self.n_tail)]}
+        else:
+            cache["layers"] = [self._layer_cache(kind, batch, cl, device)
+                               for kind in self.kinds]
+        return cache
+
     # ------------------------------------------------------------------
-    def _run_paged_layers(self, params: Params, x: torch.Tensor,
-                          positions: torch.Tensor, caches: List, *,
-                          window_override: Optional[int],
-                          paged: Dict[str, Any]) -> torch.Tensor:
-        """Unrolled layer loop over the per-layer page-pool buffers."""
+    def _layer_views(self, layers: Any, caches: Any):
+        """``(i, layer params, layer cache)`` in layer order, for the
+        three layouts; a uniform stack's cache may also be the paged
+        cache's per-layer list.  Stacked entries are views, so in-place
+        cache writes land in the stacked buffers."""
+        if self.uniform:
+            for i in range(self.cfg.n_layers):
+                cache = (caches[i] if isinstance(caches, list)
+                         else _index_tree(caches, i))
+                yield i, _index_tree(layers, i), cache
+        elif self.block_period:
+            p_, nb = self.block_period, self.n_full_blocks
+            for b in range(nb):
+                for j in range(p_):
+                    yield (b * p_ + j, _index_tree(layers["blocks"][j], b),
+                           _index_tree(caches["blocks"][j], b))
+            for t in range(self.n_tail):
+                yield nb * p_ + t, layers["tail"][t], caches["tail"][t]
+        else:
+            for i in range(self.cfg.n_layers):
+                yield i, layers[i], caches[i]
+
+    def _run_layers(self, params: Params, x: torch.Tensor,
+                    positions: torch.Tensor, caches: Any, *,
+                    window_override: Optional[int],
+                    paged: Optional[Dict[str, Any]] = None,
+                    ring: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """Unrolled layer loop; each layer updates its cache in place."""
         cfg = self.cfg
         windows = list(cfg.layer_windows(0))
         thetas = list(cfg.layer_thetas())
         if window_override is not None:
             windows = [window_override] * cfg.n_layers
-        layers = params["layers"]
-        for i in range(cfg.n_layers):
-            x = _layer_forward(cfg, _index_tree(layers, i), x, positions,
-                               thetas[i], windows[i], caches[i], paged,
-                               self.qmm)
+        for i, lp, cache in self._layer_views(params["layers"], caches):
+            x = _layer_forward(cfg, self.kinds[i], lp, x, positions,
+                               thetas[i], windows[i], cache, paged=paged,
+                               ring=ring, qmm=self.qmm)
         return x
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -374,6 +565,23 @@ class Model:
         return unembed(head, x, tied=self.cfg.tie_embeddings)
 
     # ------------------------------------------------------------------
+    def prefill(self, params: Params, batch: Dict[str, Any],
+                cache: Dict[str, Any], *,
+                window_override: Optional[int] = None, impl: str = "auto",
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Process the prompts ``batch['tokens']`` (B, S) at positions
+        0..S-1 into a fresh ring cache; return the last token's logits
+        (B, 1, V).  ``impl`` picks the RG-LRU scan ("auto": the kernel
+        on CUDA tensors; "ref": the plain version)."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        ring = {"q_pos": None, "single_step": False, "impl": impl}
+        x = self._run_layers(params, x, positions, cache["layers"],
+                             window_override=window_override, ring=ring)
+        cache["length"].fill_(tokens.shape[1])
+        return self._logits(params, x[:, -1:]), cache
+
     def prefill_paged(self, params: Params, batch: Dict[str, Any],
                       cache: Dict[str, Any], slot: int, plen: int, *,
                       page_size: int, start: Optional[int] = None,
@@ -418,30 +626,38 @@ class Model:
                 "kv_len": int(start) + int(plen),
                 "q_offset": int(start),
             }
-        x = self._run_paged_layers(params, x, positions, cache["layers"],
-                                   window_override=window_override,
-                                   paged=paged)
+        x = self._run_layers(params, x, positions, cache["layers"],
+                             window_override=window_override, paged=paged)
         last = min(max(int(plen) - 1, 0), Sp - 1)
         return self._logits(params, x[:, last:last + 1]), cache
 
     def decode_step(self, params: Params, cache: Dict[str, Any],
-                    tokens: torch.Tensor, pos: torch.Tensor, *,
+                    tokens: torch.Tensor, pos: Any, *,
                     window_override: Optional[int] = None,
                     page_size: Optional[int] = None, impl: str = "auto",
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One paged decode step.  tokens (B, 1); ``pos`` (B,) is each
-        slot's absolute position, ``pos[b] < 0`` marks an idle slot (its
-        write goes to the scratch page, its attention is fully masked).
-        ``impl`` picks the decode attention ("auto": the kernel on CUDA
-        tensors; "ref": the plain version)."""
-        if page_size is None:
-            raise NotImplementedError(
-                "scalar-position decode over the ring cache is not ported "
-                "yet; pass page_size=... (paged cache)")
-        return self._decode_step_paged(params, cache, tokens, pos,
-                                       page_size=page_size,
-                                       window_override=window_override,
-                                       impl=impl)
+        """One decode step.  tokens (B, 1).
+
+        Ring cache: ``pos`` is the *scalar* absolute position (a host
+        int) shared by the whole lockstep batch.  Paged cache
+        (``page_size`` given): ``pos`` (B,) is each slot's absolute
+        position, ``pos[b] < 0`` marks an idle slot (its write goes to
+        the scratch page, its attention is fully masked).  ``impl``
+        picks the decode attention ("auto": the kernel on CUDA tensors;
+        "ref": the plain version)."""
+        if page_size is not None:
+            return self._decode_step_paged(params, cache, tokens, pos,
+                                           page_size=page_size,
+                                           window_override=window_override,
+                                           impl=impl)
+        pos = int(pos)
+        x = self._embed(params, tokens)
+        positions = torch.arange(pos, pos + 1, device=tokens.device)
+        ring = {"q_pos": pos, "single_step": True, "impl": impl}
+        x = self._run_layers(params, x, positions, cache["layers"],
+                             window_override=window_override, ring=ring)
+        cache["length"].fill_(pos + 1)
+        return self._logits(params, x), cache
 
     def _decode_step_paged(self, params: Params, cache: Dict[str, Any],
                            tokens: torch.Tensor, pos: torch.Tensor, *,
@@ -464,10 +680,8 @@ class Model:
         kv_len = (pos + 1).clamp(min=0).to(torch.int32)
         paged = {"page_size": page_size, "write_slots": write_slots,
                  "block_tables": bt, "kv_len": kv_len, "impl": impl}
-        x = self._run_paged_layers(params, x, safe_pos[:, None],
-                                   cache["layers"],
-                                   window_override=window_override,
-                                   paged=paged)
+        x = self._run_layers(params, x, safe_pos[:, None], cache["layers"],
+                             window_override=window_override, paged=paged)
         return self._logits(params, x), cache
 
     def verify_step(self, *args, **kwargs):

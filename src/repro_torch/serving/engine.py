@@ -1,17 +1,32 @@
-"""Request / completion records and the throughput report of the
-serving stack (the device-free part of ``repro.serving.engine``).
+"""Serving engine — the length-bucket baseline (``repro.serving.engine``).
 
-The reference's length-bucket ``ServingEngine`` (the baseline over the
-ring cache) is not ported yet; the port serves through the paged
-continuous engine (``repro_torch.serving.continuous``).
+Requests are grouped into *length buckets* (equal prompt length, so no
+padding), each bucket is prefilled once into a fresh ring cache and
+decoded in lockstep with per-request completion tracking.  Buckets run
+one after another and no request joins mid-decode; the paged
+continuous engine (``repro_torch.serving.continuous``) is the
+production path, and both give the same greedy tokens.
+
+Device execution lives behind :class:`~repro_torch.serving.runner.BucketRunner`
+(``device="cuda"`` unless the caller passes ``device="cpu"``).  Sampling
+draws from one explicit ``torch.Generator`` on the runner's device,
+seeded from ``seed``, where the reference splits a JAX key per call.
+
+This module also holds the request / completion records and the
+throughput report that every engine shares.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
-from .sampler import SamplingParams
+import numpy as np
+import torch
+
+from ..models.transformer import Model
+from .sampler import SamplingParams, sample_grouped
 
 #: admission/preemption ordering of the SLO-aware scheduler: lower rank
 #: wins.  ``interactive`` traffic (chat turns — humans waiting on TTFT)
@@ -60,6 +75,107 @@ class Completion:
     #: into queue-wait (t_sched - t0) + prefill (t_first - t_sched).
     #: The bucket engine admits instantly, so it stamps t_sched = t0.
     t_sched: float = 0.0
+
+
+class ServingEngine:
+    def __init__(self, model: Model, params: Any, *, max_len: int = 1024,
+                 cache_len: Optional[int] = None,
+                 window_override: Optional[int] = None,
+                 seed: int = 0, device: Any = "cuda") -> None:
+        from .runner import BucketRunner
+        self.model = model
+        self.max_len = max_len
+        self.cache_len = cache_len
+        self.window_override = window_override
+        self.runner = BucketRunner(model, params,
+                                   window_override=window_override,
+                                   device=device)
+        self.params = self.runner.params
+        self.device = self.runner.device
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.last_phase_s: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+    def _buckets(self, requests: Sequence[Request],
+                 max_batch: int) -> List[List[Request]]:
+        by_len: Dict[int, List[Request]] = {}
+        for r in requests:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        buckets = []
+        for _, rs in sorted(by_len.items()):
+            for i in range(0, len(rs), max_batch):
+                buckets.append(rs[i:i + max_batch])
+        return buckets
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def generate(self, requests: Sequence[Request], *,
+                 max_batch: int = 8) -> List[Completion]:
+        for r in requests:
+            if r.extra:
+                raise NotImplementedError(
+                    f"request {r.uid}: extra inputs {sorted(r.extra)} "
+                    "(image / audio stubs) are not ported yet")
+        out: List[Completion] = []
+        wall0 = time.perf_counter()
+        prefill_total = 0.0
+        for bucket in self._buckets(requests, max_batch):
+            comps = self._run_bucket(bucket)
+            prefill_total += comps[0].prefill_s
+            out.extend(comps)
+        #: true phase times of the last generate() call, for
+        #: ``throughput_report(comps, **engine.last_phase_s)``
+        wall = time.perf_counter() - wall0
+        self.last_phase_s = {"wall_s": wall, "prefill_s": prefill_total,
+                             "decode_s": max(wall - prefill_total, 0.0)}
+        return sorted(out, key=lambda c: c.uid)
+
+    def _run_bucket(self, bucket: List[Request]) -> List[Completion]:
+        B = len(bucket)
+        plen = len(bucket[0].prompt)
+        tokens = torch.tensor([r.prompt for r in bucket], dtype=torch.long,
+                              device=self.device)
+        cache = self.runner.init_cache(B, self.max_len,
+                                       cache_len=self.cache_len)
+
+        t0 = time.perf_counter()
+        logits, cache = self.runner.prefill({"tokens": tokens}, cache)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+
+        max_new = max(r.sampling.max_new_tokens for r in bucket)
+        # each request keeps its OWN SamplingParams (temperature/top-k);
+        # lanes sharing params still sample in one device call
+        sps = [r.sampling for r in bucket]
+        done = np.zeros(B, bool)
+        generated: List[List[int]] = [[] for _ in range(B)]
+        cur = sample_grouped(logits, sps, self._gen)
+        t_first = time.perf_counter()
+        for step in range(max_new):
+            for b, r in enumerate(bucket):
+                if done[b]:
+                    continue
+                t = int(cur[b, 0])
+                generated[b].append(t)
+                if ((r.sampling.eos_id is not None
+                     and t == r.sampling.eos_id)
+                        or len(generated[b]) >= r.sampling.max_new_tokens):
+                    done[b] = True
+            if done.all() or plen + step + 1 >= self.max_len:
+                break
+            logits, cache = self.runner.decode(
+                cache, torch.from_numpy(cur).to(self.device), plen + step)
+            cur = sample_grouped(logits, sps, self._gen)
+        t1 = time.perf_counter()
+        return [Completion(uid=r.uid, prompt_len=plen,
+                           tokens=generated[b], latency_s=t1 - t0,
+                           prefill_s=t_prefill, t0=t0, t1=t1,
+                           t_first=t_first, t_sched=t0)
+                for b, r in enumerate(bucket)]
 
 
 def throughput_report(completions: Sequence[Completion], *,

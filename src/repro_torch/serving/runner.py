@@ -23,6 +23,10 @@ Q4_0 weights are written once at load, on the runner's device, and the
 model reads them through its ``qmm`` hook; int8 KV pages are allocated
 by ``init_cache`` and quantized / dequantized inside each call.
 
+:class:`BucketRunner` is the same seam for the length-bucket engine
+(``serving.engine.ServingEngine``): ring-cache prefill and lockstep
+decode, one call each, with no cache of its own.
+
 Not ported yet (``NotImplementedError``): tensor-parallel serving
 (``mesh=``) and speculative ``verify``.
 """
@@ -30,7 +34,7 @@ Not ported yet (``NotImplementedError``): tensor-parallel serving
 from __future__ import annotations
 
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -184,3 +188,32 @@ class ModelRunner:
         if self._c_q4_decode is not None:
             self._c_q4_decode.inc()
         return logits
+
+
+class BucketRunner:
+    """Device seam for the length-bucket engine: ring-cache prefill and
+    lockstep decode over the caller's cache (``Model.prefill`` /
+    ``Model.decode_step``), on ``device`` (CUDA unless the caller asks
+    for the CPU; CUDA without a GPU raises)."""
+
+    def __init__(self, model: Model, params: Any, *,
+                 window_override: Optional[int] = None,
+                 device: Any = "cuda") -> None:
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = params_to(params, self.device)
+        self.window_override = window_override
+
+    def init_cache(self, batch: int, max_len: int, *,
+                   cache_len: Optional[int] = None) -> Dict[str, Any]:
+        return self.model.init_cache(batch, max_len, cache_len=cache_len,
+                                     device=self.device)
+
+    def prefill(self, batch: Dict[str, Any], cache: Dict[str, Any]):
+        return self.model.prefill(self.params, batch, cache,
+                                  window_override=self.window_override)
+
+    def decode(self, cache: Dict[str, Any], tokens: torch.Tensor,
+               pos: int):
+        return self.model.decode_step(self.params, cache, tokens, pos,
+                                      window_override=self.window_override)

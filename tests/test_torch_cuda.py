@@ -20,6 +20,15 @@ dequantized weights and sum in f32 in other orders, so the Pallas
 test's rtol 1e-5 / atol 1e-4 (``tests/test_kernels.py``), plus half a
 bf16 ulp of the plain value for a bf16 result.  TF32 is off for the
 plain version's matmul.
+
+Tolerance, contiguous decode attention: as for the paged kernel (1e-5,
+plus half a bf16 ulp for a bf16 result): the same values, float32
+arithmetic, another summation order.
+
+Tolerance, RG-LRU scan: none.  Kernel and plain version run the same
+sequential recurrence with the same two float32 roundings per step (the
+kernel's ``__fmul_rn`` / ``__fadd_rn`` cannot be fused into an FMA), so
+they must agree bit for bit.
 """
 
 import numpy as np
@@ -28,8 +37,10 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  paged_decode_attention)
 from repro_torch.kernels.q4_gemm import q4_gemm
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.quant import q4_0, quantize_rows
 
 TOL = 1e-5
@@ -267,3 +278,149 @@ def test_kernel_rejects_what_it_does_not_take():
     with pytest.raises(TypeError, match="int32"):
         paged_decode_attention(q.float(), k.float(), v.float(), bt.long(),
                                lens)
+
+
+# ----------------------------------------------------------------------
+# contiguous decode attention (the bucket engine's ring cache)
+# ----------------------------------------------------------------------
+
+def _cache_case(seed, *, B, S, H, G, D, dtype, dev):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
+               for shape in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+    return q, k, v
+
+
+def ring_positions(n_written, slots, dev):
+    """Positions held by a ring of ``slots`` after writing positions
+    0 .. n_written - 1 at ``p % slots`` (-1 = never written)."""
+    pos = np.full(slots, -1, np.int32)
+    for p in range(max(n_written - slots, 0), n_written):
+        pos[p % slots] = p
+    return torch.from_numpy(pos).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,G,D", [(2, 256, 2, 4, 64), (1, 512, 4, 1, 128),
+                                       (3, 128, 2, 8, 32),
+                                       (1, 1024, 1, 4, 256)])
+def test_contiguous_kernel_matches_plain_version(dtype, B, S, H, G, D):
+    """The TPU kernel's form (kv_len), at the Pallas test's shapes, with
+    kv_len 0 (nothing valid: the mean of V), 1, mid and S, windows and a
+    softcap."""
+    dev = _device()
+    q, k, v = _cache_case(S + G, B=B, S=S, H=H, G=G, D=D, dtype=dtype,
+                          dev=dev)
+    live = torch.ones(B, H, G, D, dtype=torch.bool, device=dev)
+    for kv_len in (0, 1, S // 3 + 1, S):
+        for window, softcap in ((0, 0.0), (7, 0.0), (0, 30.0)):
+            got = decode_attention(q, k, v, kv_len, window=window,
+                                   softcap=softcap)
+            torch.cuda.synchronize()
+            want = tref.decode_attention_ref(q, k, v, kv_len, window=window,
+                                             softcap=softcap)
+            assert got.dtype == q.dtype and torch.isfinite(got).all()
+            excess, err = _max_excess(got, want, live)
+            assert excess <= 0, (kv_len, window, softcap, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 8])
+def test_ring_kernel_matches_plain_version(B):
+    """RecurrentGemma's decode shape (MQA, G = 10, D = 256, bf16 cache of
+    560 slots): a ring that is filling, one that is full and a wrapped
+    one (written past its length), windows 7 and 2048, softcap 0 and 30;
+    plus an f32 query on the bf16 cache."""
+    dev = _device()
+    S = 560
+    q, k, v = _cache_case(B, B=B, S=S, H=1, G=10, D=256,
+                          dtype=torch.bfloat16, dev=dev)
+    live = torch.ones(B, 1, 10, 256, dtype=torch.bool, device=dev)
+    for n_written in (1, 300, S, 1500):
+        pos = ring_positions(n_written, S, dev)
+        q_pos = n_written - 1
+        for window in (7, 2048):
+            for softcap in (0.0, 30.0):
+                for qq in (q, q.float()):
+                    got = decode_attention(qq, k, v, kv_positions=pos,
+                                           q_pos=q_pos, window=window,
+                                           softcap=softcap)
+                    torch.cuda.synchronize()
+                    want = tref.decode_attention_ref(
+                        qq, k, v, kv_positions=pos, q_pos=q_pos,
+                        window=window, softcap=softcap)
+                    excess, err = _max_excess(got, want, live)
+                    assert excess <= 0, (n_written, window, softcap, err)
+
+
+@pytest.mark.cuda
+def test_gqa_decode_attention_launches_the_kernel_on_cuda_tensors():
+    dev = _device()
+    q, k, v = _cache_case(5, B=3, S=40, H=2, G=4, D=32,
+                          dtype=torch.float32, dev=dev)
+    q1 = q.reshape(3, 1, 8, 32)
+    pos = ring_positions(50, 40, dev)
+    before = decode_attention.launches
+    out = ops.gqa_decode_attention(q1, k, v, kv_positions=pos, q_pos=49,
+                                   window=16)
+    assert decode_attention.launches == before + 1
+    ref = ops.gqa_decode_attention(q1, k, v, kv_positions=pos, q_pos=49,
+                                   window=16, impl="ref")
+    assert decode_attention.launches == before + 1
+    assert out.shape == (3, 1, 8, 32) and (out - ref).abs().max() < TOL
+    with pytest.raises(ValueError, match="kv_len"):
+        decode_attention(q, k, v)
+    with pytest.raises(ValueError, match="ring form"):
+        decode_attention(q, k, v, 4, kv_positions=pos, q_pos=3)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q, k, v, kv_positions=pos.long(), q_pos=3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        decode_attention(q.half(), k.half(), v.half(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                         v, 4)
+    assert decode_attention.launches == before + 1
+
+
+# ----------------------------------------------------------------------
+# RG-LRU scan
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,W", [(4, 512, 2560), (8, 256, 2560),
+                                   (2, 37, 64), (3, 1, 5), (1, 33, 100)])
+def test_rglru_kernel_matches_plain_version(with_h0, B, T, W):
+    """The model's shapes, a ragged T and W (not multiples of the
+    kernel's 16-step chunk or 64-thread block), and T = 1."""
+    dev = _device()
+    rng = np.random.default_rng(B * T + W)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, W))).to(dev,
+                                                              torch.float32)
+    u = torch.from_numpy(rng.normal(size=(B, T, W))).to(dev, torch.float32)
+    h0 = (torch.from_numpy(rng.normal(size=(B, W))).to(dev, torch.float32)
+          if with_h0 else None)
+    got = rglru_scan(a, u, h0)
+    torch.cuda.synchronize()
+    want = tref.rglru_scan_ref(a, u, h0)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_rglru_linear_scan_launches_the_kernel_and_refuses_bad_input():
+    dev = _device()
+    a = torch.rand(2, 9, 16, device=dev)
+    u = torch.randn(2, 9, 16, device=dev)
+    before = rglru_scan.launches
+    out = ops.rglru_linear_scan(a, u)
+    assert rglru_scan.launches == before + 1
+    ref = ops.rglru_linear_scan(a, u, impl="ref")
+    assert rglru_scan.launches == before + 1 and torch.equal(out, ref)
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a.double(), u.double())
+    with pytest.raises(ValueError, match="h0"):
+        rglru_scan(a, u, torch.zeros(2, 15, device=dev))
+    with pytest.raises(ValueError, match="on cpu"):
+        rglru_scan(a, u.cpu())
+    assert rglru_scan.launches == before + 1

@@ -1,13 +1,18 @@
-"""The port's paged decode attention vs the Pallas TPU kernel.
+"""The port's decode attention kernels vs the Pallas TPU kernels.
 
-On the CPU the port's wrapper (``repro_torch.kernels.ops``) runs the
+On the CPU the port's wrappers (``repro_torch.kernels.ops``) run each
 kernel's plain version; it is held against the Pallas kernel itself
 (``interpret=True``) and against the reference's jnp oracle, on the same
-numpy inputs.  Tolerance 1e-5: every path computes in float32 from the
-same float32 inputs and differs only in summation order.
+numpy inputs: the paged kernel, and the contiguous one in its TPU form
+(``kv_len``) and in its ring form (``kv_positions``, held against the
+reference's ``flash_attention`` over a wrapped ring, the contract of the
+ring decode step).  Tolerance 1e-5: every path computes in float32 from
+the same float32 inputs and differs only in summation order.  (The
+RG-LRU scan's plain version is held against the reference in
+``tests/test_torch_recurrent.py``.)
 
-The CUDA kernel itself runs only on a GPU: ``tests/test_torch_cuda.py``
-holds it against this plain version there.
+The CUDA kernels themselves run only on a GPU: ``tests/test_torch_cuda.py``
+holds them against these plain versions there.
 """
 
 import jax.numpy as jnp
@@ -16,11 +21,16 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.decode_attention import \
     paged_decode_attention as pallas_paged
+from repro.models.attention import flash_attention as j_flash_attention
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  paged_decode_attention)
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.models.attention import flash_attention
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -145,13 +155,23 @@ def test_ops_wrapper_reads_int8_pages_like_the_reference():
 
 
 def test_kernel_module_imports_and_refuses_cpu_tensors():
-    """The kernel module imports without nvcc (nothing builds at import)
-    and its wrapper takes CUDA tensors only — no silent CPU fallback."""
+    """The kernel modules import without nvcc (nothing builds at import)
+    and their wrappers take CUDA tensors only — no silent CPU fallback."""
     q, k, v, bt, lens = _case(60)
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_attention(*(torch.from_numpy(a)
                                  for a in (q, k, v, bt, lens)))
     assert isinstance(paged_decode_attention.launches, int)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(torch.zeros(1, 1, 2, 16), torch.zeros(1, 4, 1, 16),
+                         torch.zeros(1, 4, 1, 16), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan(torch.zeros(1, 3, 4), torch.zeros(1, 3, 4))
+    assert isinstance(decode_attention.launches, int)
+    assert isinstance(rglru_scan.launches, int)
+    with pytest.raises(ValueError, match="impl"):
+        ops.rglru_linear_scan(torch.zeros(1, 3, 4), torch.zeros(1, 3, 4),
+                              impl="pallas")
     with pytest.raises(ValueError, match="impl"):
         ops.paged_gqa_decode_attention(
             torch.zeros(1, 1, 2, 16), torch.zeros(8, 2, 16),
@@ -166,3 +186,107 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         pytest.skip("this machine has a CUDA toolkit at the default path")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+# ----------------------------------------------------------------------
+# contiguous decode attention
+# ----------------------------------------------------------------------
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("B,S,H,G,D,bs", [
+    (2, 256, 2, 4, 64, 64),
+    (1, 512, 4, 1, 128, 128),
+    (3, 128, 2, 8, 32, 32),
+    (1, 1024, 1, 4, 256, 256),    # gemma3-like MQA
+])
+def test_contiguous_plain_version_matches_pallas_and_oracle(B, S, H, G, D,
+                                                            bs, fill):
+    """The reference's Pallas test shapes (``tests/test_kernels.py``),
+    kv_len 0 included: nothing valid gives the mean of V in both (the
+    finite NEG_INF), where the reference's -inf oracle gives NaN."""
+    kv_len = int(S * fill) if fill else 0
+    q, k, v = _rand((B, H, G, D), 0), _rand((B, S, H, D), 1), \
+        _rand((B, S, H, D), 2)
+    got = tref.decode_attention_ref(*(torch.from_numpy(a)
+                                      for a in (q, k, v)), kv_len).numpy()
+    assert np.isfinite(got).all()
+    pallas = np.asarray(pallas_decode(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), kv_len, block_s=bs,
+                                      interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    if kv_len == 0:
+        np.testing.assert_allclose(got, np.broadcast_to(
+            v.mean(axis=1)[:, :, None, :], got.shape), **TOL)
+        return
+    oracle = np.asarray(jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len))
+    np.testing.assert_allclose(got, oracle, **TOL)
+    from repro.kernels import ops as jops
+    q1 = q.reshape(B, 1, H * G, D)
+    want = np.asarray(jops.gqa_decode_attention(
+        jnp.asarray(q1), jnp.asarray(k), jnp.asarray(v), kv_len,
+        impl="ref"))
+    for impl in ("auto", "ref"):
+        mine = ops.gqa_decode_attention(
+            torch.from_numpy(q1), torch.from_numpy(k), torch.from_numpy(v),
+            kv_len, impl=impl)
+        assert mine.shape == (B, 1, H * G, D)
+        np.testing.assert_allclose(mine.numpy(), want, **TOL)
+
+
+def _ring(n_written, slots):
+    """Positions a ring of ``slots`` holds after positions 0..n-1 were
+    written at ``p % slots`` (-1 = never written)."""
+    pos = np.full(slots, -1, np.int32)
+    for p in range(max(n_written - slots, 0), n_written):
+        pos[p % slots] = p
+    return pos
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("window", [0, 5, 64])
+@pytest.mark.parametrize("n_written", [3, 24, 61])
+def test_ring_form_matches_flash_attention_over_the_ring(n_written, window,
+                                                         softcap):
+    """The ring decode step's contract (``transformer.py:362-365``): one
+    query at ``q_pos`` over a 24-slot ring holding 3 (filling), 24
+    (full) or the last 24 of 61 (wrapped) positions, through the
+    reference ``flash_attention(..., q_offset, kv_positions, window,
+    softcap)``; the port's own ``flash_attention`` gives the same."""
+    B, S, Hkv, G, D = 2, 24, 2, 3, 16
+    pos = _ring(n_written, S)
+    q = _rand((B, 1, Hkv * G, D), 3)
+    k, v = _rand((B, S, Hkv, D), 4), _rand((B, S, Hkv, D), 5)
+    q_pos = n_written - 1
+    want = np.asarray(j_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, q_offset=q_pos, kv_positions=jnp.asarray(pos),
+        chunk=16, softcap=softcap))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tpos = torch.from_numpy(pos)
+    got = ops.gqa_decode_attention(tq, tk, tv, kv_positions=tpos,
+                                   q_pos=q_pos, window=window,
+                                   softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    flash = flash_attention(tq, tk, tv, causal=True, window=window,
+                            q_offset=q_pos, kv_positions=tpos, chunk=16,
+                            softcap=softcap)
+    np.testing.assert_allclose(flash.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("kv_offset,kv_len", [(0, None), (8, None), (8, 30)])
+def test_flash_attention_kv_offset_matches_the_reference(kv_offset, kv_len):
+    """A key block that starts at ``kv_offset`` (a padded last chunk
+    included), with and without a global ``kv_len``."""
+    q, k, v = _rand((2, 5, 4, 16), 6), _rand((2, 27, 2, 16), 7), \
+        _rand((2, 27, 2, 16), 8)
+    kw = dict(causal=True, window=0, q_offset=30, kv_offset=kv_offset,
+              kv_len=kv_len, chunk=8)
+    want = np.asarray(j_flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                        **kw))
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

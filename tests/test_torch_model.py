@@ -183,14 +183,18 @@ def test_paged_prefill_and_decode_match_the_reference(name):
 
 
 def test_unsupported_features_raise():
+    """MoE, SSD and cross-attention layers, the paged cache on a hybrid
+    (RG-LRU + attention) stack and speculative verify are not ported."""
     for arch_cfg in (dataclasses.replace(BENCH_TINY, n_experts=4,
                                          experts_per_token=2),
-                     dataclasses.replace(BENCH_TINY,
-                                         block_pattern=("rglru", "attn"))):
+                     dataclasses.replace(BENCH_TINY, arch_type="ssm"),
+                     dataclasses.replace(BENCH_TINY, cross_attn_every=2)):
         with pytest.raises(NotImplementedError, match="bench-tiny"):
             build_model(arch_cfg)
+    hybrid = build_model(dataclasses.replace(
+        BENCH_TINY, block_pattern=("rglru", "attn")))
+    with pytest.raises(NotImplementedError, match="paged KV cache"):
+        hybrid.init_cache(2, 16, page_size=4, device="cpu")
     m = build_model(BENCH_TINY)
-    with pytest.raises(NotImplementedError, match="ring"):
-        m.init_cache(2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="verify"):
         m.verify_step()

@@ -521,11 +521,13 @@ def test_prefix_sharing_over_int8_pages_copies_codes_and_scales(tiny_tree):
 
 
 def test_serve_cli_quantized_on_cpu():
+    # quantized serving runs on the paged engine; the CLI's default
+    # engine is the bucket engine, which refuses --quant / --kv-dtype
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         "--arch", "qwen3-1.7b", "--quant", "q4", "--kv-dtype", "int8",
-         "--max-new", "4"],
+         "--arch", "qwen3-1.7b", "--engine", "continuous", "--quant", "q4",
+         "--kv-dtype", "int8", "--max-new", "4"],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "quant: weights=q4 kv_dtype=int8" in out.stdout

@@ -245,7 +245,11 @@ def test_port_imports_without_jax_or_the_reference():
         "sys.modules['jax'] = None\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.models.weights\n"
-        "import repro_torch.quant\n"
+        "import repro_torch.quant, repro_torch.configs\n"
+        "import repro_torch.kernels.rglru_scan\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.models.recurrent, repro_torch.models.ssm\n"
+        "from repro_torch.serving import ServingEngine, BucketRunner\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and (m == 'repro'\n"
         "             or m.startswith(('repro.', 'jax', 'ml_dtypes'))))\n"
