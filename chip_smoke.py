@@ -17,7 +17,15 @@ non-zero if any phase fails, or if no CUDA device is present:
    b. its int8-page variant at the serving shapes (int8 pages with
       per-row scales, an idle lane on the scratch page), q in f32 and
       bf16;
-   c. the Q4_0 GEMM at the four full-width projection shapes, M 1, 8 and
+   c. its split-K for f32, bf16 and int8 pages: kv_len at every split
+      edge and one either side, kv_len = max_pages * ps, idle lanes on the
+      zeroed scratch page, windows that begin inside a split with whole
+      splits before them, page sizes 4 and 16, long tables (max_pages 256,
+      kv_len 4096), G 1-16 at D 16-256, q in f32 and bf16;
+   d. one paged call captured in a CUDA graph and replayed, against
+      eager calls, before and after kv_lens and the block table change in
+      place (bf16 and int8 pages);
+   e. the Q4_0 GEMM at the four full-width projection shapes, M 1, 8 and
       128, and at a bench-tiny shape, x in f32 and bf16;
 4. kernel timing with CUDA events, inputs rotated past the 50 MB L2,
    beside the plain version and the bound: paged attention (bf16 and
@@ -35,7 +43,8 @@ non-zero if any phase fails, or if no CUDA device is present:
 6. bf16 decode parity: from one cache state after the prefills, one
    decode step with the kernel and one with the plain version on a clone
    of the cache; logits must agree; the kernel is timed on that state,
-   and a decode step is profiled;
+   and a decode step is profiled (the paged kernel's split and merge
+   launches must each run once per layer);
 7. serve the same model and traffic under ``QuantPolicy(weights="q4",
    kv_dtype="int8")`` after freeing the bf16 engine; checks the
    completions, the prefix cache, Q4_0 launches = 7 x 28 per forward
@@ -45,7 +54,7 @@ non-zero if any phase fails, or if no CUDA device is present:
    the plain versions (plain ``qmm`` and plain attention) on a clone of
    the int8 cache; the int8 kernel is timed on that state beside the
    bf16 kernel on the same state dequantized, and a decode step is
-   profiled;
+   profiled, as in 6;
 9. the contiguous decode-attention kernel vs its plain version: at
    RecurrentGemma's decode shape (B 4 and 8, one kv head, G=10, D=256,
    bf16 cache of 560 slots) in the TPU kernel's form (kv_len 0, 1, 300,
@@ -244,6 +253,129 @@ def make_case(torch, gen, *, B, Hkv, G, D, ps, max_pages, lens, dtype,
     return q, k, v, list(bts), kv_lens
 
 
+def paged_pages(torch, quantize_rows, kind, k, v):
+    """(k, v, scale kwargs) of float pages in the page format ``kind``."""
+    if kind == "int8":
+        (kc, ks), (vc, vs) = quantize_rows(k), quantize_rows(v)
+        return kc, vc, {"k_scales": ks, "v_scales": vs}
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return k.to(dtype), v.to(dtype), {}
+
+
+def check_paged_splits(torch, ref, da, quantize_rows, gen):
+    """Phase 3c: the paged kernel's split-K against its plain version:
+    kv_len at every split edge and one either side, kv_len = max_pages *
+    ps and an idle lane on the zeroed scratch page, windows that begin
+    inside a split with whole splits before them, page sizes 4 and 16,
+    long tables (max_pages 256, kv_len 4096), G 1-16 at D 16-256, q in
+    f32 and bf16, for f32, bf16 and int8 pages.  Returns the largest
+    |kernel - plain| for float pages and for int8 pages."""
+    kernel = da.paged_decode_attention
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"float": 0.0, "int8": 0.0}
+
+    def run(name, kind, shape, windows, q_dtypes, softcaps=(0.0, 30.0),
+            scratch=True):
+        q, k, v, (bt,), lens = make_case(torch, gen, dtype=torch.float32,
+                                         **shape)
+        if scratch:                # the idle lane's table on the scratch page
+            k[0], v[0] = 0.0, 0.0
+            bt[int(torch.argmin(lens))] = 0
+        k, v, scales = paged_pages(torch, quantize_rows, kind, k, v)
+        live = lens > 0
+        n = 0
+        err = 0.0
+        for q_dtype in q_dtypes:
+            qq = q.to(q_dtype)
+            for window in windows:
+                for softcap in softcaps:
+                    got = kernel(qq, k, v, bt, lens, window, softcap=softcap,
+                                 **scales)
+                    torch.cuda.synchronize()
+                    want = ref.paged_decode_attention_ref(
+                        qq, k, v, bt, lens, window, softcap=softcap,
+                        **scales)
+                    what = (f"{name} {kind} pages q {q_dtype} "
+                            f"window={window} softcap={softcap}")
+                    if bool((got[~live] != 0).any()):
+                        fail(f"{what}: an idle lane is not zero")
+                    err = max(err, check(torch, got, want, live, what))
+                    n += 1
+        key = "int8" if kind == "int8" else "float"
+        errs[key] = max(errs[key], err)
+        print(f"[kernel] paged splits, {name}, {kind} pages: {n} cases, "
+              f"max|kernel-plain| {err:.3e}")
+
+    for kind in ("f32", "bf16", "int8"):
+        for ps, mp in ((16, 64), (4, 48)):
+            B, Hkv, G = 2, 2, 2
+            ng = da.paged_heads_per_block(G, kind == "int8")
+            n_split, chunk = da.paged_split_plan(mp, ps, B * Hkv * -(-G // ng),
+                                                 sms)
+            edge = chunk * ps
+            lens = sorted({min(max(z * edge + d, 0), mp * ps)
+                           for z in range(1, n_split) for d in (-1, 0, 1)}
+                          | {0, 1, mp * ps})
+            inside = 2 * edge + edge // 2
+            run(f"ps={ps} max_pages={mp} ({n_split} splits of {chunk} "
+                f"pages), kv_len at split edges", kind,
+                dict(B=len(lens), Hkv=Hkv, G=G, D=128, ps=ps, max_pages=mp,
+                     lens=lens), (0, 7, inside), (torch.float32,
+                                                  torch.bfloat16))
+        if kind != "f32":
+            run("long tables (max_pages 256, kv_len to 4096)", kind,
+                dict(B=8, Hkv=8, G=2, D=128, ps=16, max_pages=256,
+                     lens=[0, 4096, 4095, 4081, 3000, 2049, 1024, 17]),
+                (0, 1000), (torch.bfloat16,), (0.0,))
+        for G, D in ((1, 256), (3, 64), (5, 16), (8, 128), (10, 256),
+                     (16, 128), (16, 48)):
+            run(f"G={G} D={D}", kind,
+                dict(B=5, Hkv=2, G=G, D=D, ps=16, max_pages=24,
+                     lens=[0, 1, 100, 257, 384]), (0, 33), (torch.bfloat16,))
+    return errs["float"], errs["int8"]
+
+
+def check_paged_graph(torch, ref, kernel, quantize_rows, gen):
+    """Phase 3d: one paged call captured in a CUDA graph and replayed
+    equals an eager call, also after kv_lens and the block table change in
+    place (read on the device at each replay, never on the host)."""
+    for kind in ("bf16", "int8"):
+        q, k, v, (bt,), lens = make_case(
+            torch, gen, B=8, Hkv=8, G=2, D=128, ps=16, max_pages=64,
+            lens=[0, 129, 201, 321, 417, 385, 449, 513], dtype=torch.float32)
+        q = q.to(torch.bfloat16)
+        k, v, scales = paged_pages(torch, quantize_rows, kind, k, v)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kernel(q, k, v, bt, lens, **scales)
+        torch.cuda.current_stream().wait_stream(side)
+        before = kernel.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kernel(q, k, v, bt, lens, **scales)
+        if kernel.launches != before + 1:
+            fail(f"graph capture counted {kernel.launches - before} launches")
+        for step in range(2):
+            if step:                       # new lengths and tables in place
+                lens.copy_(torch.tensor([600, 1, 0, 1024, 17, 16, 300, 999],
+                                        dtype=torch.int32))
+                bt.copy_(bt.flip(0))
+            graph.replay()
+            eager = kernel(q, k, v, bt, lens, **scales)
+            torch.cuda.synchronize()
+            if not torch.equal(captured, eager):
+                fail(f"{kind} pages: graph replay {step} differs from an "
+                     "eager call")
+            check(torch, captured, ref.paged_decode_attention_ref(
+                q, k, v, bt, lens, **scales), lens > 0,
+                f"{kind} pages graph replay {step}")
+        print(f"[kernel] paged {kind} pages in a CUDA graph: 2 replays "
+              f"(kv_lens and block table changed in place between them) "
+              f"equal eager calls bit for bit")
+        del graph, captured
+
+
 def serve(torch, eng, prompts, cfg, kernels, label, card):
     """Drive the engine's main path once: a warm-up request over the
     shared prefix (its pages stay in the retention LRU, so the two
@@ -366,14 +498,36 @@ def profile_step(torch, step, first, label, card, batch=8):
         if e.device_type != DeviceType.CUDA:    # host ops: not device time
             continue
         if e.device_time_total > 0:                 # microseconds
-            by_kernel[e.key] = e.device_time_total / n_steps / 1e3
-    busy_ms = sum(by_kernel.values())
+            by_kernel[e.key] = (e.device_time_total / n_steps / 1e3,
+                                e.count / n_steps)
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
     print(f"[profile] {label} decode step (B={batch}): wall {wall_ms:.2f} "
           f"ms, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of "
           f"wall) — {card}")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[profile]   {ms * 1e3:8.1f} us/step  {name[:90]}")
+    for name, (ms, n) in sorted(by_kernel.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"[profile]   {ms * 1e3:8.1f} us/step {n:5.0f} launches/step  "
+              f"{name[:80]}")
     return by_kernel
+
+
+def paged_profile(by_kernel, n_layers, label, card):
+    """The paged kernel's two launches in a profiled decode step: device
+    ms per step of the split and the merge launches, each of which must
+    run once per layer.  Returns the device ms per call, both included."""
+    found = {}
+    for part in ("paged_split_kernel", "paged_merge_kernel"):
+        hits = [v for name, v in by_kernel.items() if part in name]
+        found[part] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+        if found[part][1] != n_layers:
+            fail(f"{label} decode step: {found[part][1]} {part} launches a "
+                 f"step, not {n_layers}")
+    (ms_s, n_s), (ms_m, n_m) = found.values()
+    print(f"[profile] paged decode attention in the {label} decode step: "
+          f"split {ms_s * 1e3:.1f} us/step over {n_s:.0f} launches, merge "
+          f"{ms_m * 1e3:.1f} us/step over {n_m:.0f} launches, "
+          f"{(ms_s + ms_m) / n_layers * 1e3:.1f} us a call — {card}")
+    return (ms_s + ms_m) / n_layers
 
 
 def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
@@ -381,8 +535,9 @@ def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
     """The paged kernel at the serving path's own inputs: this state's
     block table and lengths, cycling the 28 layers' pools as one decode
     step does (so K/V come from HBM, not L2).  Returns (max error, kernel
-    ms, plain ms, SDPA ms, bound ms, bound_by, and for int8 pages the bf16
-    kernel's ms on the same state dequantized)."""
+    ms, plain ms, SDPA ms, bound ms, bound_by, for int8 pages the bf16
+    kernel's ms on the same state dequantized, and the kernel's n_split
+    there)."""
     from repro_torch.quant import dequantize_rows
     ps, B, D = 16, len(pos), cfg.resolved_head_dim
     Hkv = cfg.n_kv_heads
@@ -402,6 +557,7 @@ def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
                      device="cuda").to(torch.bfloat16)
     nl = len(pools)
     out_k = kernel(qd, *pools[0], bt, lens, **scales[0])
+    n_split, chunk = kernel.plan            # what this call launched
     out_p = ref.paged_decode_attention_ref(qd, *pools[0], bt, lens,
                                            **scales[0])
     torch.cuda.synchronize()
@@ -436,14 +592,15 @@ def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
     del bf16_pools
     b_ms, b_by = bound(int(lens.sum()), B, Hkv, cfg.n_heads // Hkv, D, mp,
                        2, "bfloat16", row_bytes=D + 4 if int8 else 0)
-    print(f"[timing] {label} serving state (B=8, kv_len {lens.tolist()}): "
+    print(f"[timing] {label} serving state (B=8, kv_len {lens.tolist()}, "
+          f"max_pages {mp}: {n_split} splits of {chunk} pages): "
           f"kernel {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa "
           f"(pre-gathered{', dequantized' if int8 else ''}, excluded from "
           f"the time) {t_l * 1e3:.1f} us"
           + (f", bf16 kernel on the same state {t_bf16 * 1e3:.1f} us"
              if int8 else "")
           + f", bound {b_ms * 1e3:.2f} us ({b_by}) — {card}")
-    return err, t_k, t_p, t_l, b_ms, b_by, t_bf16
+    return err, t_k, t_p, t_l, b_ms, b_by, t_bf16, n_split
 
 
 def ring_positions(torch, n_written, slots, dev="cuda"):
@@ -809,7 +966,13 @@ def main() -> int:
                 print(f"[kernel] {what}: max|kernel-plain| {err:.3e}")
     del q, k, v, kc, vc, ks, vs
 
-    # -- 3c. Q4_0 GEMM vs plain version ----------------------------------
+    # -- 3c./3d. the paged kernel's split-K, and a CUDA graph ------------
+    err_f, err_8 = check_paged_splits(torch, ref, da, quantize_rows, gen)
+    max_err, err_i8 = max(max_err, err_f), max(err_i8, err_8)
+    check_paged_graph(torch, ref, kernel, quantize_rows, gen)
+    torch.cuda.empty_cache()
+
+    # -- 3e. Q4_0 GEMM vs plain version ----------------------------------
     err_q4 = 0.0
     for K, N in sorted(set(Q4_PROJ.values())) + [(128, 256)]:
         w = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
@@ -945,13 +1108,13 @@ def main() -> int:
                                 page_size=ps, impl="ref")
     logit_parity(torch, got, want, LOGIT_TOL,
                  "full-width decode logits, kernel vs plain")
-    err6, t_k, t_p, t_l, b_ms, b_by, _ = time_serving_state(
+    err6, t_k, t_p, t_l, b_ms, b_by, _, n_split = time_serving_state(
         torch, F, ref, kernel, cache, pos, cfg, gen, "bf16", card)
     max_err = max(max_err, err6)
     run_params = eng.runner.params
-    profile_step(torch, lambda p_: model.decode_step(
+    paged_dev = paged_profile(profile_step(torch, lambda p_: model.decode_step(
         run_params, cache, fed_t, p_, page_size=ps), pos + 1,
-        "full-width bf16", card)
+        "full-width bf16", card), cfg.n_layers, "bf16", card)
 
     # -- 7. serve under q4 weights + int8 pages ---------------------------
     del eng, cache, clone, got, want, run_params
@@ -1002,12 +1165,14 @@ def main() -> int:
     model.qmm = make_qmm(qp.impl)
     logit_parity(torch, got, want, LOGIT_TOL_Q4,
                  "q4 + int8 decode logits, kernels vs plain")
-    err8, t_k8, t_p8, t_l8, b8_ms, b8_by, t_bf16 = time_serving_state(
-        torch, F, ref, kernel, cache, pos, cfg, gen, "int8", card)
+    err8, t_k8, t_p8, t_l8, b8_ms, b8_by, t_bf16, n_split8 = (
+        time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen,
+                           "int8", card))
     err_i8 = max(err_i8, err8)
-    profile_step(torch, lambda p_: model.decode_step(
-        qparams, cache, fed_t, p_, page_size=ps), pos + 1,
-        "full-width q4 + int8", card)
+    paged_dev8 = paged_profile(profile_step(
+        torch, lambda p_: model.decode_step(qparams, cache, fed_t, p_,
+                                            page_size=ps), pos + 1,
+        "full-width q4 + int8", card), cfg.n_layers, "q4 + int8", card)
 
     # -- 9.-11. the bucket path's kernels vs plain versions, timed ------
     del eng, cache, clone, got, want, qparams, model
@@ -1043,7 +1208,7 @@ def main() -> int:
     # -- 13. parity on the card, profile ---------------------------------
     by_kernel = rg_parity(torch, model, eng.runner.params, prompts, card)
     # the contiguous kernel is two launches: the splits, then the merge
-    da_dev = sum(ms for name_, ms in by_kernel.items()
+    da_dev = sum(ms for name_, (ms, _) in by_kernel.items()
                  if "decode_attn_split_kernel" in name_
                  or "decode_attn_combine_kernel" in name_)
     if da_dev <= 0:
@@ -1071,6 +1236,8 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": t_l,
+        "splits": n_split,
+        "decode_step_device_ms_per_call": paged_dev,
     }, {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -1084,6 +1251,8 @@ def main() -> int:
         "bound_by": b8_by,
         "library_ms": t_l8,
         "bf16_pages_same_state_ms": t_bf16,
+        "splits": n_split8,
+        "decode_step_device_ms_per_call": paged_dev8,
     }, {
         "name": "q4_gemm",
         "route": "cuda",

@@ -24,6 +24,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,6 +36,9 @@ CONTIGUOUS_KERNEL = "decode_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_HEAD_DIM = 256
+#: splits per (sequence, kv head) in either kernel: their merges keep
+#: G * n_split weights in shared memory
+MAX_SPLITS = 256
 
 
 def _bind() -> ctypes.CDLL:
@@ -42,13 +46,59 @@ def _bind() -> ctypes.CDLL:
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,      # tensors
-                       ci, ci, ci, ci, ci, ci, ci, ci, ci,  # dtypes .. window
-                       cf, cf, ci, vp]                      # softcap .. stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,  # tensors
+                       ci, ci, ci, ci, ci, ci, ci, ci,          # dtypes .. mp
+                       ci, ci, ci, ci,                          # splits .. win
+                       cf, cf, ci, vp]                  # softcap .. stream
         fn.restype = ci
         lib.paged_decode_attention_error.argtypes = [ci]
         lib.paged_decode_attention_error.restype = ctypes.c_char_p
     return lib
+
+
+#: the paged kernel's split-K: splits of whole pages holding at least this
+#: many tokens, enough of them for about this many blocks per SM over all
+#: ``max_pages`` (the host never reads ``kv_lens``, so splits past a
+#: sequence's end are launched and exit at once), at most MAX_SPLITS
+PAGED_MIN_SPLIT_TOKENS = 64
+PAGED_BLOCKS_PER_SM = 8
+
+
+def paged_heads_per_block(G: int, int8: bool) -> int:
+    """Query heads one block of the paged kernel computes: G rounded up to
+    a power of two, at most 8 (4 for int8 pages, whose registers per head
+    are twice as many); a larger group takes several blocks."""
+    cap, ng = (4 if int8 else 8), 1
+    while ng < min(G, cap):
+        ng *= 2
+    return ng
+
+
+def split_plan(n_units: int, min_units: int, blocks: int,
+               blocks_per_sm: int, sms: int):
+    """(n_split, chunk): the split-K of both decode kernels.  Cut the
+    ``n_units`` units (pages or slots) of each of ``blocks`` blocks into
+    ``n_split`` splits of ``chunk`` units, split z holding units ``[z *
+    chunk, (z + 1) * chunk)`` (the last one clipped to ``n_units``): enough
+    splits for about ``blocks_per_sm`` blocks per SM, none under
+    ``min_units`` units, at most MAX_SPLITS."""
+    want = -(-blocks_per_sm * sms // max(blocks, 1))
+    n_split = max(1, min(-(-n_units // min_units), want, MAX_SPLITS))
+    chunk = max(1, -(-n_units // n_split))
+    return max(1, -(-n_units // chunk)), chunk
+
+
+def paged_split_plan(max_pages: int, page_size: int, blocks: int,
+                     sms: int):
+    """The paged kernel's :func:`split_plan` over ``max_pages`` pages for
+    ``blocks`` (sequence, kv head, head chunk) triples."""
+    return split_plan(max_pages, -(-PAGED_MIN_SPLIT_TOKENS // page_size),
+                      blocks, PAGED_BLOCKS_PER_SM, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -67,6 +117,11 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     bytes.  Int8 pages need ``k_scales``/``v_scales`` (P, ps, H)
     float32, one scale per (row, kv head).  Lanes with ``kv_len == 0``
     come out zero.
+
+    Two launches, the splits (:func:`paged_split_plan`, kept in
+    ``paged_decode_attention.plan``) and their merge, counted as one.  Nothing is read back from the device (``kv_lens``
+    only on it), so a call does not synchronise and can be captured in a
+    CUDA graph.
     """
     B, H, G, D = q.shape
     P, ps, Hk, Dk = k_pages.shape
@@ -116,46 +171,43 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     qc = q.contiguous()
     bt = block_tables.contiguous()
     lens = kv_lens.contiguous()
+    ng = paged_heads_per_block(G, int8)
+    n_split, chunk = paged_split_plan(max_pages, ps, B * H * -(-G // ng),
+                                      _sm_count(dev.index or 0))
     out = torch.empty((B, H, G, D), dtype=q.dtype, device=dev)
+    part_acc = torch.empty((B * H * n_split, G, D), dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty((B * H * n_split, 2, G), dtype=torch.float32,
+                          device=dev)
     lib = _bind()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.paged_decode_attention(
         qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if int8 else None,
         v_scales.data_ptr() if int8 else None,
-        bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        bt.data_ptr(), lens.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], _PAGE_DTYPES[k_pages.dtype], B, H, G, D, ps,
-        max_pages,
-        int(window),
-        float(softcap), 1.0 / math.sqrt(D), dev.index or 0, stream)
+        max_pages, n_split, chunk, ng, int(window), float(softcap),
+        1.0 / math.sqrt(D), dev.index or 0, stream)
     if err != 0:
         msg = lib.paged_decode_attention_error(err).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"CUDA error {err} ({msg})")
     paged_decode_attention.launches += 1
+    paged_decode_attention.plan = (n_split, chunk)
     return out
 
 
 paged_decode_attention.launches = 0
+#: (n_split, chunk) of the last launch
+paged_decode_attention.plan = None
 
 
-#: the contiguous kernel's split-K: at least this many slots per split,
-#: up to this many blocks per SM in all, and at most MAX_SPLITS splits (the
-#: merge keeps G * n_split weights in shared memory)
+#: the contiguous kernel's split-K (:func:`split_plan`): at least this
+#: many slots per split, up to this many blocks per SM in all
 MIN_SPLIT_SLOTS = 8
 BLOCKS_PER_SM = 4
-MAX_SPLITS = 256
-
-
-def _splits(n_slots: int, pairs: int, dev: torch.device):
-    """(n_split, chunk): cut ``n_slots`` slots of each of ``pairs``
-    (sequence, kv head) pairs into splits of ``chunk`` slots, enough for
-    up to BLOCKS_PER_SM blocks per SM, none under MIN_SPLIT_SLOTS."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = min(-(-BLOCKS_PER_SM * sms // pairs), MAX_SPLITS)
-    n_split = max(1, min(-(-n_slots // MIN_SPLIT_SLOTS), want))
-    chunk = max(1, -(-n_slots // n_split))
-    return (-(-n_slots // chunk) if n_slots else 1), chunk
 
 
 def _bind_contiguous() -> ctypes.CDLL:
@@ -242,7 +294,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{kv_positions.device}")
         lo, hi, q_pos = 0, S, int(q_pos)
         pos_ptr = kv_positions.data_ptr()
-    n_split, chunk = _splits(max(hi - lo, 0), B * H, dev)
+    n_split, chunk = split_plan(max(hi - lo, 0), MIN_SPLIT_SLOTS, B * H,
+                                BLOCKS_PER_SM, _sm_count(dev.index or 0))
     qc = q.contiguous()
     out = torch.empty((B, H, G, D), dtype=q.dtype, device=dev)
     part_acc = torch.empty((B * H * n_split, G, D), dtype=torch.float32,

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (decode_attention,
@@ -266,6 +267,141 @@ def test_q4_matmul_launches_the_kernel_and_refuses_what_it_cannot_take():
     assert shifted.data_ptr() % 16
     assert torch.equal(q4_gemm(shifted, packed, scales),
                        q4_gemm(x, packed, scales))
+
+
+# ----------------------------------------------------------------------
+# the paged kernel's split-K: split edges, windows, long tables, head
+# groups and CUDA-graph capture
+# ----------------------------------------------------------------------
+
+def _pages(kind, k, v):
+    """(k, v, scale kwargs) in the page format ``kind``."""
+    if kind == "int8":
+        kc, vc, ks, vs = _int8_pages(k, v)
+        return kc, vc, dict(k_scales=ks, v_scales=vs)
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    return k.to(dtype), v.to(dtype), {}
+
+
+def _plan(B, H, G, ps, max_pages, kind):
+    ng = kda.paged_heads_per_block(G, kind == "int8")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return kda.paged_split_plan(max_pages, ps, B * H * -(-G // ng), sms)
+
+
+def _check_paged(q, k, v, bt, lens, windows, softcaps=(0.0,), **scales):
+    live = lens > 0
+    for window in windows:
+        for softcap in softcaps:
+            got = paged_decode_attention(q, k, v, bt, lens, window,
+                                         softcap=softcap, **scales)
+            torch.cuda.synchronize()
+            want = tref.paged_decode_attention_ref(q, k, v, bt, lens, window,
+                                                   softcap=softcap, **scales)
+            assert got.dtype == q.dtype
+            assert torch.isfinite(got).all(), "a lane is not finite"
+            assert (got[~live] == 0).all(), "an idle lane is not zero"
+            excess, err = _max_excess(got, want, live)
+            assert excess <= 0, (window, softcap, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("ps,max_pages", [(16, 64), (4, 48)])
+def test_paged_kernel_at_split_edges_and_windows(q_dtype, kind, ps,
+                                                 max_pages):
+    """kv_len at every split edge and one either side of it, kv_len =
+    max_pages * ps, an idle lane; windows 0, 7, one that begins inside a
+    split with whole splits before it, and one wider than the table."""
+    dev = _device()
+    B, H, G, D = 2, 2, 2, 128
+    n_split, chunk = _plan(B, H, G, ps, max_pages, kind)
+    edge = chunk * ps
+    assert n_split >= 3
+    lens = sorted({min(max(z * edge + d, 0), max_pages * ps)
+                   for z in range(1, n_split) for d in (-1, 0, 1)}
+                  | {0, 1, max_pages * ps})
+    q, k, v, bt, lens_t = _case(ps * 5 + len(kind), B=len(lens), H=H, G=G,
+                                D=D, ps=ps, max_pages=max_pages, lens=lens,
+                                dtype=torch.float32, dev=dev,
+                                q_dtype=q_dtype)
+    k[0], v[0] = 0.0, 0.0            # the zeroed scratch page, in a table
+    bt[0, 0] = 0
+    k, v, scales = _pages(kind, k, v)
+    inside = 2 * edge + edge // 2     # starts in split 2 of a full table
+    _check_paged(q, k, v, bt, lens_t, (0, 7, inside, 10 * max_pages * ps),
+                 (0.0, 30.0), **scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_kernel_over_long_tables(kind):
+    """max_pages 256, kv_len 4096 (B = 8 as chip_smoke times it) and
+    ragged lengths up to it."""
+    dev = _device()
+    lens = [4096, 4095, 4081, 3000, 2049, 1024, 17, 0]
+    q, k, v, bt, lens_t = _case(11, B=8, H=8, G=2, D=128, ps=16,
+                                max_pages=256, lens=lens,
+                                dtype=torch.float32, dev=dev,
+                                q_dtype=torch.bfloat16)
+    k, v, scales = _pages(kind, k, v)
+    _check_paged(q, k, v, bt, lens_t, (0, 1000), **scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("G,D", [(1, 256), (3, 64), (5, 16), (8, 128),
+                                 (10, 256), (16, 128), (16, 48)])
+def test_paged_kernel_head_groups(kind, G, D):
+    """G 1-16 at D 16-256: groups above a block's heads (8, or 4 for int8
+    pages) take several blocks; G not a power of two pads the last one."""
+    dev = _device()
+    lens = [0, 1, 100, 257, 16 * 24]
+    q, k, v, bt, lens_t = _case(G * D, B=len(lens), H=2, G=G, D=D, ps=16,
+                                max_pages=24, lens=lens, dtype=torch.float32,
+                                dev=dev, q_dtype=torch.bfloat16)
+    k, v, scales = _pages(kind, k, v)
+    _check_paged(q, k, v, bt, lens_t, (0, 33), (0.0, 30.0), **scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_kernel_replays_in_a_cuda_graph(kind):
+    """A call captured in a CUDA graph and replayed equals an eager call,
+    also after kv_lens and block_tables change in place: the wrapper reads
+    nothing of them on the host, and the kernel reads them on the device
+    at every replay."""
+    dev = _device()
+    q, k, v, bt, lens = _case(21, B=8, H=8, G=2, D=128, ps=16, max_pages=64,
+                              lens=[0, 129, 201, 321, 417, 385, 449, 513],
+                              dtype=torch.float32, dev=dev,
+                              q_dtype=torch.bfloat16)
+    k, v, scales = _pages(kind, k, v)
+    eager = paged_decode_attention(q, k, v, bt, lens, **scales)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):             # warm-up off the capture
+        paged_decode_attention(q, k, v, bt, lens, **scales)
+    torch.cuda.current_stream().wait_stream(side)
+    before = paged_decode_attention.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = paged_decode_attention(q, k, v, bt, lens, **scales)
+    assert paged_decode_attention.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    lens.copy_(torch.tensor([600, 1, 0, 1024, 17, 16, 300, 999],
+                            dtype=torch.int32))
+    bt.copy_(bt.flip(0))
+    graph.replay()
+    eager = paged_decode_attention(q, k, v, bt, lens, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    excess, err = _max_excess(captured, tref.paged_decode_attention_ref(
+        q, k, v, bt, lens, **scales), lens > 0)
+    assert excess <= 0, err
 
 
 @pytest.mark.cuda

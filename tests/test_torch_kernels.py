@@ -15,6 +15,8 @@ The CUDA kernels themselves run only on a GPU: ``tests/test_torch_cuda.py``
 holds them against these plain versions there.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from repro.kernels.decode_attention import \
     paged_decode_attention as pallas_paged
 from repro.models.attention import flash_attention as j_flash_attention
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
@@ -186,6 +189,139 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         pytest.skip("this machine has a CUDA toolkit at the default path")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+# ----------------------------------------------------------------------
+# the paged kernel's split-K: the host's plan and the merge arithmetic
+# ----------------------------------------------------------------------
+
+def _split_tokens(z, chunk, ps, max_pages, kv_len, window):
+    """Valid tokens [lo, hi) of split z, as the kernel's split launch
+    clips its pages to [kv_len - window, kv_len) (empty when lo >= hi)."""
+    j0 = max(kv_len - window, 0) if window > 0 else 0
+    lo = max(z * chunk * ps, j0)
+    hi = min(min(z * chunk + chunk, max_pages) * ps, kv_len)
+    return lo, hi
+
+
+@pytest.mark.parametrize("max_pages,ps,blocks,sms", [
+    (64, 16, 64, 132),      # the Qwen3 serving state: max_len 1024, B*Hkv 64
+    (256, 16, 64, 132),     # B=8 at kv_len 4096
+    (5, 4, 6, 132),
+    (40, 4, 2, 132),
+    (300, 4, 1, 132),       # more splits wanted than MAX_SPLITS allows
+    (1, 16, 8, 132),
+    (7, 16, 1000, 132),     # more blocks than the card holds: one split
+])
+def test_paged_split_plan_covers_each_valid_page_once(max_pages, ps, blocks,
+                                                      sms):
+    n_split, chunk = kda.paged_split_plan(max_pages, ps, blocks, sms)
+    assert 1 <= n_split <= kda.MAX_SPLITS
+    # split z holds pages [z * chunk, (z + 1) * chunk), the last clipped
+    splits = [range(z * chunk, min((z + 1) * chunk, max_pages))
+              for z in range(n_split)]
+    assert all(len(r) > 0 for r in splits), "no split runs past max_pages"
+    for window in (0, 7):
+        for kv_len in range(max_pages * ps + 1):
+            j0 = max(kv_len - window, 0) if window > 0 else 0
+            valid = {p for p in range(max_pages)
+                     if p * ps < kv_len and (p + 1) * ps > j0}
+            seen = [p for r in splits for p in r if p in valid]
+            assert sorted(seen) == sorted(valid), (window, kv_len)
+    assert sorted(p for r in splits for p in r) == list(range(max_pages))
+    if (max_pages, ps) == (64, 16):       # splits of 4 pages, 16 per pair
+        assert (n_split, chunk) == (16, 4)
+
+
+@pytest.mark.parametrize("pairs", [1, 8, 64, 1000])
+def test_contiguous_split_plan_covers_each_slot_once(pairs):
+    for n_slots in range(0, 300, 7):
+        n_split, chunk = kda.split_plan(n_slots, kda.MIN_SPLIT_SLOTS, pairs,
+                                        kda.BLOCKS_PER_SM, 132)
+        assert 1 <= n_split <= kda.MAX_SPLITS
+        # no more splits than whole MIN_SPLIT_SLOTS runs of slots
+        assert n_split <= max(1, -(-n_slots // kda.MIN_SPLIT_SLOTS))
+        slots = [s for z in range(n_split)
+                 for s in range(z * chunk, min((z + 1) * chunk, n_slots))]
+        assert slots == list(range(n_slots)), n_slots
+        assert n_slots == 0 or (n_split - 1) * chunk < n_slots
+
+
+def _emulate_split_merge(q, k, v, bt, lens, window, softcap, n_split,
+                         chunk):
+    """Plain-torch emulation of the kernel's two launches: each split's
+    unnormalised (m, l, acc) over its valid tokens, an empty split marked
+    l = 0 with a NaN acc (its scratch is never written), then the merge
+    launch's formula.  It checks the formula, not the kernel: the CUDA
+    kernel's own clipping and merge are held against the plain version on
+    the card by ``test_paged_kernel_at_split_edges_and_windows``."""
+    B, H, G, D = q.shape
+    ps, max_pages = k.shape[1], bt.shape[1]
+    neg = tref.NEG_INF
+    m = torch.full((B, H, n_split, G), neg)
+    l = torch.zeros((B, H, n_split, G))
+    acc = torch.full((B, H, n_split, G, D), float("nan"))
+    for b in range(B):
+        for z in range(n_split):
+            lo, hi = _split_tokens(z, chunk, ps, max_pages, int(lens[b]),
+                                   window)
+            if lo >= hi:
+                continue
+            j = torch.arange(lo, hi)
+            rows = bt[b, j // ps].long() * ps + j % ps
+            kz = k.reshape(-1, H, D)[rows]            # (n, H, D)
+            vz = v.reshape(-1, H, D)[rows]
+            s = torch.einsum("hgd,nhd->hgn", q[b], kz) / math.sqrt(D)
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            mz = s.max(-1).values
+            p = torch.exp(s - mz[..., None])
+            m[b, :, z], l[b, :, z] = mz, p.sum(-1)
+            acc[b, :, z] = torch.einsum("hgn,nhd->hgd", p, vz)
+    live = l > 0
+    mx = torch.where(live, m, torch.full_like(m, neg)).max(2).values
+    w = torch.where(live, torch.exp(m - mx[:, :, None]), torch.zeros_like(m))
+    den = (w * l).sum(2)
+    w = w / torch.where(den > 0, den, torch.ones_like(den))[:, :, None]
+    out = torch.zeros((B, H, G, D))
+    for z in range(n_split):
+        wz = w[:, :, z]
+        used = wz != 0
+        out += torch.where(used[..., None],
+                           wz[..., None] * torch.nan_to_num(acc[:, :, z]),
+                           torch.zeros_like(out))
+    return out
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("ps,max_pages,G,min_tokens", [
+    (16, 20, 2, None),        # 5 splits of 4 pages
+    (4, 40, 1, None),         # 3 splits of 16 pages
+    (4, 12, 3, 4),            # splits of one page: most of them empty
+])
+def test_split_and_merge_emulation_matches_the_plain_version(
+        monkeypatch, softcap, window, ps, max_pages, G, min_tokens):
+    if min_tokens:
+        monkeypatch.setattr(kda, "PAGED_MIN_SPLIT_TOKENS", min_tokens)
+    B, H, D = 8, 2, 16
+    n_split, chunk = kda.paged_split_plan(max_pages, ps, B * H, 132)
+    assert n_split > 1
+    edge = chunk * ps                   # tokens per split
+    lens = [0, 1, edge - 1, edge, edge + 1, 2 * edge + 1,
+            max_pages * ps - 1, max_pages * ps]
+    q, k, v, bt, lens = (torch.from_numpy(a) for a in _case(
+        ps * 13 + G, B=B, H=H, G=G, D=D, ps=ps, max_pages=max_pages,
+        lens=lens))
+    got = _emulate_split_merge(q, k, v, bt, lens, window, softcap, n_split,
+                               chunk)
+    want = tref.paged_decode_attention_ref(q, k, v, bt, lens, window,
+                                           softcap=softcap)
+    live = lens > 0
+    assert torch.isfinite(got).all()
+    assert (got[~live] == 0).all(), "kv_len = 0 lanes come out as zeros"
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(),
+                               rtol=0, atol=1e-5)
 
 
 # ----------------------------------------------------------------------
