@@ -27,6 +27,10 @@ non-zero if any phase fails, or if no CUDA device is present:
       place (bf16 and int8 pages);
    e. the Q4_0 GEMM at the four full-width projection shapes, M 1, 8 and
       128, and at a bench-tiny shape, x in f32 and bf16;
+   f. every kernel called twice on the same input at the main paths'
+      shapes (paged bf16 and int8 pages, the Q4_0 GEMM at M=8 and 128 in
+      bf16 and at M=8 in f32, the contiguous kernel over a ring, the
+      RG-LRU scan): the two results must be bit-equal;
 4. kernel timing with CUDA events, inputs rotated past the 50 MB L2,
    beside the plain version and the bound: paged attention (bf16 and
    int8 pages) at B=8, kv_len 1024 and 4096, with
@@ -54,7 +58,9 @@ non-zero if any phase fails, or if no CUDA device is present:
    the plain versions (plain ``qmm`` and plain attention) on a clone of
    the int8 cache; the int8 kernel is timed on that state beside the
    bf16 kernel on the same state dequantized, and a decode step is
-   profiled, as in 6;
+   profiled, as in 6 (the Q4_0 kernel must run 196 times in it); then one
+   full-width 128-token prefill chunk is profiled by kernel (the Q4_0
+   kernel again 196 times, at M=128);
 9. the contiguous decode-attention kernel vs its plain version: at
    RecurrentGemma's decode shape (B 4 and 8, one kv head, G=10, D=256,
    bf16 cache of 560 slots) in the TPU kernel's form (kv_len 0, 1, 300,
@@ -79,11 +85,15 @@ non-zero if any phase fails, or if no CUDA device is present:
 13. parity on the card: prefill logits with the scan kernel against the
     plain scan, and one decode step with the kernels against the plain
     versions on a clone of the ring cache; then a decode step is
-    profiled.
+    profiled (the contiguous kernel must run once per attention layer).
 
-It prints one JSON line ``{"kernels": [...]}`` before the last line, and
-as the last line ``{"ok": true, "device": {...}}``.  Nothing here
-imports JAX or the reference package.
+The build phase prints nvcc's register and spill report for every
+kernel.  It prints one JSON line ``{"kernels": [...]}`` before the last
+line (the contiguous kernel's entry carries all four timed shapes with
+their SDPA times and bounds, the Q4_0 entry its M=8 and M=128 times and
+bounds by shape and its device time in a decode step and a prefill
+chunk), and as the last line ``{"ok": true, "device": {...}}``.  Nothing
+here imports JAX or the reference package.
 """
 
 import json
@@ -239,10 +249,9 @@ def plain(ref, q, *args, **kw):
 
 
 def make_case(torch, gen, *, B, Hkv, G, D, ps, max_pages, lens, dtype,
-              copies=1):
+              copies=1, dev="cuda"):
     """q, page pools and ``copies`` block tables over disjoint shuffled
     pages (copies > 1 lets a timing loop rotate past the 50 MB L2)."""
-    dev = "cuda"
     n_pages = 1 + copies * B * max_pages
     q = torch.randn(B, Hkv, G, D, generator=gen, device=dev).to(dtype)
     k = torch.randn(n_pages, ps, Hkv, D, generator=gen, device=dev).to(dtype)
@@ -472,13 +481,45 @@ def logit_parity(torch, got, want, tol, what):
         fail(f"{what}: decode parity failed")
 
 
+def kernel_times(torch, run, n):
+    """Device milliseconds and launches per run by kernel name, from
+    torch.profiler over ``n`` calls of ``run()`` (synchronised)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:    # host ops: not device time
+            continue
+        if e.device_time_total > 0:                 # microseconds
+            by_kernel[e.key] = (e.device_time_total / n / 1e3, e.count / n)
+    return by_kernel
+
+
+def print_top(by_kernel, k=8):
+    for name, (ms, n) in sorted(by_kernel.items(),
+                                key=lambda kv: -kv[1][0])[:k]:
+        print(f"[profile]   {ms * 1e3:8.1f} us/step {n:5.0f} launches/step  "
+              f"{name[:80]}")
+
+
+def kernel_share(by_kernel, parts):
+    """(device ms, launches) per step of the kernels whose names hold any
+    of ``parts``."""
+    hits = [v for name, v in by_kernel.items()
+            if any(part in name for part in parts)]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+
 def profile_step(torch, step, first, label, card, batch=8):
     """Host wall per full-width decode step (``step(pos)`` runs one,
     synchronised, no profiler), then device time by kernel name from
     torch.profiler over the same number of further steps.  Returns the
     device milliseconds per step by kernel name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n_steps = 4
 
     def steps(start):
@@ -490,25 +531,31 @@ def profile_step(torch, step, first, label, card, batch=8):
     t0 = time.perf_counter()
     steps(first)
     wall_ms = (time.perf_counter() - t0) / n_steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps(first + n_steps)
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:    # host ops: not device time
-            continue
-        if e.device_time_total > 0:                 # microseconds
-            by_kernel[e.key] = (e.device_time_total / n_steps / 1e3,
-                                e.count / n_steps)
+    done = []                       # the profiled steps follow the timed
+
+    def next_step():
+        step(first + n_steps + len(done))
+        done.append(1)
+
+    by_kernel = kernel_times(torch, next_step, n_steps)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     print(f"[profile] {label} decode step (B={batch}): wall {wall_ms:.2f} "
           f"ms, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of "
           f"wall) — {card}")
-    for name, (ms, n) in sorted(by_kernel.items(),
-                                key=lambda kv: -kv[1][0])[:8]:
-        print(f"[profile]   {ms * 1e3:8.1f} us/step {n:5.0f} launches/step  "
-              f"{name[:80]}")
+    print_top(by_kernel)
     return by_kernel
+
+
+def q4_profile(by_kernel, n_calls, label, card):
+    """The Q4_0 kernel in a profiled forward call: device ms per call of
+    the forward and its launches, which must be ``n_calls``."""
+    ms, n = kernel_share(by_kernel, ("q4_mma_kernel", "q4_decode_kernel",
+                                     "q4_gemm_kernel"))
+    if round(n) != n_calls:
+        fail(f"{label}: {n:.0f} Q4_0 launches, not {n_calls}")
+    print(f"[profile] Q4_0 GEMM in the {label}: {ms * 1e3:.1f} us over "
+          f"{n:.0f} launches ({ms / n * 1e3:.2f} us a call) — {card}")
+    return ms
 
 
 def paged_profile(by_kernel, n_layers, label, card):
@@ -517,8 +564,7 @@ def paged_profile(by_kernel, n_layers, label, card):
     run once per layer.  Returns the device ms per call, both included."""
     found = {}
     for part in ("paged_split_kernel", "paged_merge_kernel"):
-        hits = [v for name, v in by_kernel.items() if part in name]
-        found[part] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+        found[part] = kernel_share(by_kernel, (part,))
         if found[part][1] != n_layers:
             fail(f"{label} decode step: {found[part][1]} {part} launches a "
                  f"step, not {n_layers}")
@@ -746,6 +792,49 @@ def time_scan_kernel(torch, ref, kern, gen, card, dev="cuda"):
           f"({b_by}); no single PyTorch call computes this recurrence — "
           f"{card}")
     return t_k, t_p, b_ms, b_by
+
+
+def check_repeatable(torch, gen, kernels, quantize_rows, q4_0, dev="cuda"):
+    """Phase 3f: each kernel called twice on the same inputs gives the
+    same bits (no float atomics anywhere), at the main paths' shapes:
+    the paged kernel (bf16 and int8 pages), the Q4_0 GEMM (bf16 x at M=8
+    and 128, f32 x), the contiguous decode kernel over a ring and the
+    RG-LRU scan."""
+    paged, q4k, contig, scan = (kernels[n] for n in (
+        "paged_decode_attention", "q4_gemm", "decode_attention",
+        "rglru_scan"))
+    q, k, v, (bt,), lens = make_case(
+        torch, gen, B=8, Hkv=8, G=2, D=128, ps=16, max_pages=64,
+        lens=[0, 1, 129, 300, 513, 700, 900, 1024], dtype=torch.bfloat16,
+        dev=dev)
+    (kc, ks), (vc, vs) = quantize_rows(k), quantize_rows(v)
+    w = torch.randn(2048, 6144, generator=gen, device=dev) / 45.0
+    packed, scales = q4_0.quantize(w)
+    xs = [torch.randn(M, 2048, generator=gen, device=dev).to(dt)
+          for M, dt in ((8, torch.bfloat16), (128, torch.bfloat16),
+                        (8, torch.float32))]
+    qr = torch.randn(4, 1, 10, 256, generator=gen, device=dev).to(
+        torch.bfloat16)
+    kr, vr = (torch.randn(4, 560, 1, 256, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    pos = ring_positions(torch, 1500, 560, dev)
+    a = 0.5 + 0.5 * torch.rand(4, 512, 2560, generator=gen, device=dev)
+    u = torch.randn(4, 512, 2560, generator=gen, device=dev)
+    calls = [("paged bf16 pages", lambda: paged(q, k, v, bt, lens)),
+             ("paged int8 pages", lambda: paged(q, kc, vc, bt, lens,
+                                                k_scales=ks, v_scales=vs)),
+             ("decode_attention ring", lambda: contig(
+                 qr, kr, vr, kv_positions=pos, q_pos=1499, window=2048)),
+             ("rglru_scan", lambda: scan(a, u, None))]
+    calls += [(f"q4_gemm M={x.shape[0]} x {x.dtype}",
+               lambda x=x: q4k(x, packed, scales)) for x in xs]
+    for what, fn in calls:
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            fail(f"{what}: two calls on the same input differ")
+    print(f"[kernel] repeatable: {len(calls)} kernel calls, each twice on "
+          f"the same input, bit-equal")
 
 
 def counted(calls, name, fn):
@@ -989,6 +1078,9 @@ def main() -> int:
                 err_q4 = max(err_q4, err)
                 print(f"[kernel] {what}: max|kernel-plain| {err:.3e}")
 
+    # -- 3f. two calls on the same input give the same bits -------------
+    check_repeatable(torch, gen, kernels, quantize_rows, q4_0)
+
     # -- 4. kernel timing ------------------------------------------------
     import torch.nn.functional as F
     for L in (1024, 4096):
@@ -1169,10 +1261,27 @@ def main() -> int:
         time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen,
                            "int8", card))
     err_i8 = max(err_i8, err8)
-    paged_dev8 = paged_profile(profile_step(
+    by_kernel8 = profile_step(
         torch, lambda p_: model.decode_step(qparams, cache, fed_t, p_,
                                             page_size=ps), pos + 1,
-        "full-width q4 + int8", card), cfg.n_layers, "q4 + int8", card)
+        "full-width q4 + int8", card)
+    paged_dev8 = paged_profile(by_kernel8, cfg.n_layers, "q4 + int8", card)
+    q4_step_ms = q4_profile(by_kernel8, 7 * cfg.n_layers,
+                            "q4 + int8 decode step (M=8)", card)
+    # one full-width 128-token prefill chunk under q4 + int8: device time
+    # by kernel (the 196 projections run at M=128)
+    chunk = torch.tensor([prompts[-1][:128]], device="cuda")
+    run_chunk = (lambda: model.prefill_paged(qparams, {"tokens": chunk},
+                                             cache, 0, 128, page_size=ps))
+    run_chunk()
+    torch.cuda.synchronize()
+    by_chunk = kernel_times(torch, run_chunk, 2)
+    print(f"[profile] full-width q4 + int8 prefill chunk (1 x 128 tokens): "
+          f"device busy {sum(ms for ms, _ in by_chunk.values()):.2f} ms — "
+          f"{card}")
+    print_top(by_chunk)
+    q4_chunk_ms = q4_profile(by_chunk, 7 * cfg.n_layers,
+                             "q4 + int8 prefill chunk (M=128)", card)
 
     # -- 9.-11. the bucket path's kernels vs plain versions, timed ------
     del eng, cache, clone, got, want, qparams, model
@@ -1207,19 +1316,22 @@ def main() -> int:
 
     # -- 13. parity on the card, profile ---------------------------------
     by_kernel = rg_parity(torch, model, eng.runner.params, prompts, card)
-    # the contiguous kernel is two launches: the splits, then the merge
-    da_dev = sum(ms for name_, (ms, _) in by_kernel.items()
-                 if "decode_attn_split_kernel" in name_
-                 or "decode_attn_combine_kernel" in name_)
-    if da_dev <= 0:
-        fail("the profile shows no device time of decode_attention")
+    # the contiguous kernel is one launch (its splits merge in a cluster)
+    # per attention layer
+    da_dev, da_n = kernel_share(by_kernel, ("decode_attn_kernel",))
+    if da_dev <= 0 or round(da_n) != n_attn:
+        fail(f"RecurrentGemma decode step: {da_n:.0f} decode_attn_kernel "
+             f"launches a step, not {n_attn}")
     print(f"[profile] decode_attention in the RecurrentGemma decode step: "
           f"{da_dev * 1e3:.1f} us/step over {n_attn} calls "
           f"({da_dev / n_attn * 1e3:.1f} us a call) — {card}")
 
     # one decode-step layer's 7 projections at M=8: mean per call
-    def q4_mean(j):
-        return sum(q4_times[s + (8,)][j] for s in Q4_PROJ.values()) / 7
+    def q4_mean(j, M=8, names=tuple(Q4_PROJ)):
+        return sum(q4_times[Q4_PROJ[n_] + (M,)][j] for n_ in names) / len(
+            names)
+
+    mlp = ("w_gate", "w_up", "w_down")
 
     t_da, t_da_p, t_da_l, b_da, b_da_by = da_times[(4, 544)]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1268,6 +1380,16 @@ def main() -> int:
         else "operations",
         "library_ms": None,
         "dense_bf16_matmul_ms": q4_mean(2),
+        "decode_step_device_ms": q4_step_ms,
+        "m128_mlp": {"ms": q4_mean(0, 128, mlp),
+                     "plain_ms": q4_mean(1, 128, mlp),
+                     "bound_ms": q4_mean(3, 128, mlp),
+                     "dense_bf16_matmul_ms": q4_mean(2, 128, mlp)},
+        "by_shape": [{"K": K, "N": N, "M": M, "ms": t[0], "plain_ms": t[1],
+                      "dense_bf16_matmul_ms": t[2], "bound_ms": t[3],
+                      "bound_by": t[4]}
+                     for (K, N, M), t in sorted(q4_times.items())],
+        "prefill_chunk_device_ms": q4_chunk_ms,
     }, {
         "name": "decode_attention",
         "route": "cuda",
@@ -1281,6 +1403,11 @@ def main() -> int:
         "bound_by": b_da_by,
         "library_ms": t_da_l,
         "decode_step_device_ms_per_call": da_dev / n_attn,
+        "splits": da.decode_attention.plan[0],
+        "by_shape": [{"B": B_, "kv_len": L_, "ms": t[0], "plain_ms": t[1],
+                      "library_ms": t[2], "bound_ms": t[3],
+                      "bound_by": t[4]}
+                     for (B_, L_), t in sorted(da_times.items())],
     }, {
         "name": "rglru_scan",
         "route": "cuda",

@@ -15,6 +15,7 @@ machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -83,6 +84,14 @@ def load(name: str) -> ctypes.CDLL:
             path, record = build(name)
             _loaded[name] = (ctypes.CDLL(str(path)), record)
         return _loaded[name][0]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the kernel
+    wrappers size their split-K grids from it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def build_record(name: str) -> Dict[str, object]:

@@ -24,7 +24,6 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -36,7 +35,7 @@ CONTIGUOUS_KERNEL = "decode_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_HEAD_DIM = 256
-#: splits per (sequence, kv head) in either kernel: their merges keep
+#: splits per (sequence, kv head) of the paged kernel: its merge keeps
 #: G * n_split weights in shared memory
 MAX_SPLITS = 256
 
@@ -75,15 +74,15 @@ def paged_heads_per_block(G: int, int8: bool) -> int:
 
 
 def split_plan(n_units: int, min_units: int, blocks: int,
-               blocks_per_sm: int, sms: int):
+               blocks_per_sm: int, sms: int, max_splits: int = MAX_SPLITS):
     """(n_split, chunk): the split-K of both decode kernels.  Cut the
     ``n_units`` units (pages or slots) of each of ``blocks`` blocks into
     ``n_split`` splits of ``chunk`` units, split z holding units ``[z *
     chunk, (z + 1) * chunk)`` (the last one clipped to ``n_units``): enough
     splits for about ``blocks_per_sm`` blocks per SM, none under
-    ``min_units`` units, at most MAX_SPLITS."""
+    ``min_units`` units, at most ``max_splits``."""
     want = -(-blocks_per_sm * sms // max(blocks, 1))
-    n_split = max(1, min(-(-n_units // min_units), want, MAX_SPLITS))
+    n_split = max(1, min(-(-n_units // min_units), want, max_splits))
     chunk = max(1, -(-n_units // n_split))
     return max(1, -(-n_units // chunk)), chunk
 
@@ -94,11 +93,6 @@ def paged_split_plan(max_pages: int, page_size: int, blocks: int,
     ``blocks`` (sequence, kv head, head chunk) triples."""
     return split_plan(max_pages, -(-PAGED_MIN_SPLIT_TOKENS // page_size),
                       blocks, PAGED_BLOCKS_PER_SM, sms)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -173,7 +167,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     lens = kv_lens.contiguous()
     ng = paged_heads_per_block(G, int8)
     n_split, chunk = paged_split_plan(max_pages, ps, B * H * -(-G // ng),
-                                      _sm_count(dev.index or 0))
+                                      build.sm_count(dev.index or 0))
     out = torch.empty((B, H, G, D), dtype=q.dtype, device=dev)
     part_acc = torch.empty((B * H * n_split, G, D), dtype=torch.float32,
                            device=dev)
@@ -204,10 +198,45 @@ paged_decode_attention.launches = 0
 paged_decode_attention.plan = None
 
 
-#: the contiguous kernel's split-K (:func:`split_plan`): at least this
-#: many slots per split, up to this many blocks per SM in all
-MIN_SPLIT_SLOTS = 8
-BLOCKS_PER_SM = 4
+#: the contiguous kernel's split-K: about this many blocks per SM over
+#: all (sequence, kv head, head chunk) triples, no split shorter than its
+#: merge costs (:func:`contiguous_split_plan`)
+CONTIGUOUS_BLOCKS_PER_SM = 2
+#: at most this many splits: the splits of one (sequence, kv head, head
+#: chunk) form a thread-block cluster, whose largest size is 16
+CONTIGUOUS_MAX_SPLITS = 16
+#: query heads one block of the contiguous kernel may take (its register
+#: arrays hold NG x 8 d of q and of acc a lane), and the compiled counts
+CONTIGUOUS_MAX_HEADS = 8
+_CONTIGUOUS_HEAD_COUNTS = (1, 2, 4, 5, 8)
+
+
+def contiguous_heads_per_block(G: int) -> int:
+    """Query heads one block of the contiguous kernel computes: the group
+    cut evenly into ``ceil(G / 8)`` chunks, each rounded up to a compiled
+    count (1, 2, 4, 5 or 8): G = 10 runs as two blocks of 5."""
+    per = -(-G // -(-G // CONTIGUOUS_MAX_HEADS))
+    return next(n for n in _CONTIGUOUS_HEAD_COUNTS if n >= per)
+
+
+def contiguous_split_plan(n_slots: int, G: int, D: int, itemsize: int,
+                          blocks: int, sms: int):
+    """(n_split, chunk) of the contiguous kernel over ``n_slots`` slots
+    for ``blocks`` (sequence, kv head, head chunk) triples.
+
+    Cost model (``csrc/decode_attention.cu``): a valid slot costs its K and
+    V rows, ``2 * D * itemsize`` bytes; a split adds a state of
+    ``(G * D + 2 * G) * 4`` bytes that is written to shared memory and
+    read back across the cluster by the merge.  So no split is shorter
+    than the slots whose K/V bytes equal that round trip, and within that
+    there are enough splits for about CONTIGUOUS_BLOCKS_PER_SM blocks an
+    SM (:func:`split_plan`), at most CONTIGUOUS_MAX_SPLITS.  The plan
+    depends on the slot count and the card only, never on which slots are
+    valid."""
+    state_round_trip = 2 * (G * D + 2 * G) * 4
+    min_slots = -(-state_round_trip // (2 * D * itemsize))
+    return split_plan(n_slots, min_slots, blocks, CONTIGUOUS_BLOCKS_PER_SM,
+                      sms, CONTIGUOUS_MAX_SPLITS)
 
 
 def _bind_contiguous() -> ctypes.CDLL:
@@ -215,9 +244,9 @@ def _bind_contiguous() -> ctypes.CDLL:
     fn = lib.decode_attention
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,      # tensors
+        fn.argtypes = [vp, vp, vp, vp, vp,                  # tensors
                        ci, ci, ci, ci, ci, ci, ci,          # dtypes .. D
-                       ci, ci, ci, ci, ci, ci,              # lo .. window
+                       ci, ci, ci, ci, ci, ci, ci,          # lo .. window
                        cf, cf, ci, vp]                      # softcap .. stream
         fn.restype = ci
         lib.decode_attention_error.argtypes = [ci]
@@ -242,6 +271,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``D <= 256`` and rows a multiple of 16 bytes.  A call in which no
     slot is valid returns the mean of V over all S slots, as the
     reference's finite ``NEG_INF`` gives.
+
+    One launch: the splits (:func:`contiguous_split_plan` over the slot
+    range, :func:`contiguous_heads_per_block`; the plan is kept in
+    ``decode_attention.plan``) of each (sequence, kv head, head chunk) form
+    a cluster that merges them.  The grid depends on S (or kv_len) and the
+    card, not on ``q_pos``.
     """
     if not q.is_cuda:
         raise ValueError("decode_attention launches a CUDA kernel; use "
@@ -294,29 +329,30 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{kv_positions.device}")
         lo, hi, q_pos = 0, S, int(q_pos)
         pos_ptr = kv_positions.data_ptr()
-    n_split, chunk = split_plan(max(hi - lo, 0), MIN_SPLIT_SLOTS, B * H,
-                                BLOCKS_PER_SM, _sm_count(dev.index or 0))
+    ng = contiguous_heads_per_block(G)
+    n_split, chunk = contiguous_split_plan(
+        max(hi - lo, 0), G, D, k.element_size(), B * H * -(-G // ng),
+        build.sm_count(dev.index or 0))
     qc = q.contiguous()
+    if qc.data_ptr() % 16:      # the kernel reads q 8 or 16 bytes at a time
+        qc = qc.clone()
     out = torch.empty((B, H, G, D), dtype=q.dtype, device=dev)
-    part_acc = torch.empty((B * H * n_split, G, D), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((B * H * n_split, 2, G), dtype=torch.float32,
-                          device=dev)
-    part_n = torch.empty((B * H * n_split,), dtype=torch.int32, device=dev)
     lib = _bind_contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.decode_attention(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ptr,
-        part_acc.data_ptr(), part_ml.data_ptr(), part_n.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], _DTYPES[k.dtype], B, S, H, G, D,
-        lo, hi, n_split, chunk, q_pos, window, float(softcap),
-        1.0 / math.sqrt(D), dev.index or 0, stream)
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ptr, out.data_ptr(),
+        _DTYPES[q.dtype], _DTYPES[k.dtype], B, S, H, G, D, lo, hi, n_split,
+        chunk, ng, q_pos, window, float(softcap), 1.0 / math.sqrt(D),
+        dev.index or 0, stream)
     if err != 0:
         msg = lib.decode_attention_error(err).decode()
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{err} ({msg})")
     decode_attention.launches += 1
+    decode_attention.plan = (n_split, chunk)
     return out
 
 
 decode_attention.launches = 0
+#: (n_split, chunk) of the last launch
+decode_attention.plan = None

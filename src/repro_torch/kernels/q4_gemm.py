@@ -16,6 +16,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -24,9 +25,57 @@ from . import build
 
 KERNEL = "q4_gemm"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: rows of x per block (``kMT`` in the source); grid.y is at most 65535
+#: rows of x per block of the f32 kernel (``kMT`` in the source); its
+#: grid.y is at most 65535
 ROWS_PER_BLOCK = 8
 MAX_M = ROWS_PER_BLOCK * 65535
+#: the bf16 tensor-core kernels: k per ring stage; rows of x per block
+#: (8 * WM); columns per block of the prefill kernel (M > 8) and of the
+#: decode kernel (M <= 8), whose 4 warps are k-groups over its columns
+STAGE_K = 64
+MMA_ROWS = (8, 16, 32, 64)
+MMA_COLS = 128
+DECODE_COLS = 32
+DECODE_WARPS = 4
+#: their split-K: about this many blocks per SM, at most Q4_MAX_SPLIT
+#: slices (the blocks of one output tile form a cluster, whose portable
+#: size is 8)
+Q4_BLOCKS_PER_SM = 2
+Q4_MAX_SPLIT = 8
+#: what a byte of the partial tile costs against a byte of codes: it moves
+#: through shared memory and the cluster, not device memory
+Q4_PARTIAL_WEIGHT = 0.25
+
+
+def q4_plan(M: int, K: int, N: int, sms: int):
+    """(rows, n_split, sps) of the bf16 kernels: ``rows`` rows of x a block
+    (the smallest compiled tile that holds M, at most 64; 8 selects the
+    decode kernel), K cut into ``n_split`` slices of ``sps`` 64-k stages
+    (the last one shorter).
+
+    Cost model (``csrc/q4_gemm.cu``): a slice adds an f32 partial tile of
+    rows x columns that is written to shared memory and read back across
+    the cluster, worth Q4_PARTIAL_WEIGHT of as many code bytes; a stage of
+    a block reads 64 x columns codes and their scales.  So a prefill slice
+    holds at least the stages whose code bytes pay for its partial, a
+    decode slice at least one stage for each of its 4 warps, and within
+    that there are enough slices for about Q4_BLOCKS_PER_SM blocks an SM,
+    at most Q4_MAX_SPLIT."""
+    rows = next((r for r in MMA_ROWS if r >= M), MMA_ROWS[-1])
+    cols = DECODE_COLS if rows == 8 else MMA_COLS
+    stages = -(-K // STAGE_K)
+    blocks = -(-N // cols) * -(-M // rows)
+    if rows == 8:
+        min_stages = DECODE_WARPS
+    else:
+        stage_bytes = STAGE_K * cols // 2 + STAGE_K // BLOCK * cols * 4
+        partial = 2 * rows * cols * 4
+        min_stages = max(1, math.ceil(Q4_PARTIAL_WEIGHT * partial
+                                      / stage_bytes))
+    want = -(-Q4_BLOCKS_PER_SM * sms // blocks)
+    n_split = max(1, min(want, stages // min_stages, Q4_MAX_SPLIT))
+    sps = -(-stages // n_split)
+    return rows, -(-stages // sps), sps
 
 
 def _bind() -> ctypes.CDLL:
@@ -35,7 +84,8 @@ def _bind() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp,          # x, packed, scales, out
-                       ci, ci, ci, ci, ci,      # x_dtype, M, K, N, device
+                       ci, ci, ci, ci,          # x_dtype, M, K, N
+                       ci, ci, ci, ci,          # rows, n_split, sps, device
                        vp]                      # stream
         fn.restype = ci
         lib.q4_gemm_error.argtypes = [ci]
@@ -51,6 +101,11 @@ def q4_gemm(x: torch.Tensor, packed: torch.Tensor,
     x is float32 or bfloat16 (the kernel sums in float32 and rounds the
     result to x's type).  K must be a multiple of 32 (``make_qmm`` pads
     to the block) and N a multiple of 4; any M up to 524,280.
+
+    bf16 x runs on the tensor cores with split-K (:func:`q4_plan`, kept in
+    ``q4_gemm.plan``): the blocks of the K slices of one output tile form
+    a cluster that sums them in a fixed order.  f32 x runs on the CUDA
+    cores, exact in f32.  Either way one call is one launch.
     """
     if not x.is_cuda:
         raise ValueError("q4_gemm launches a CUDA kernel; use kernels.ref "
@@ -86,17 +141,23 @@ def q4_gemm(x: torch.Tensor, packed: torch.Tensor,
     xc = x.contiguous()
     if xc.data_ptr() % 16:         # the kernel reads x 16 bytes at a time
         xc = xc.clone()
+    rows, n_split, sps = ROWS_PER_BLOCK, 1, 1
+    if x.dtype == torch.bfloat16:
+        rows, n_split, sps = q4_plan(M, K, N, build.sm_count(dev.index or 0))
     lib = _bind()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.q4_gemm(xc.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                      out.data_ptr(), _DTYPES[x.dtype], M, K, N,
-                      dev.index or 0, stream)
+                      out.data_ptr(), _DTYPES[x.dtype], M, K, N, rows,
+                      n_split, sps, dev.index or 0, stream)
     if err != 0:
         msg = lib.q4_gemm_error(err).decode()
         raise RuntimeError(f"q4_gemm launch failed at (M, K, N) = "
                            f"({M}, {K}, {N}): CUDA error {err} ({msg})")
     q4_gemm.launches += 1
+    q4_gemm.plan = (rows, n_split, sps)
     return out
 
 
 q4_gemm.launches = 0
+#: (rows, n_split, sps) of the last launch
+q4_gemm.plan = None

@@ -16,10 +16,12 @@ result to bf16 (round to nearest), which moves each value by at most
 half a bf16 ulp, 2**-8 of its size: that is added to the bound.
 
 Tolerance, Q4_0 GEMM: both sides multiply x by the same exactly
-dequantized weights and sum in f32 in other orders, so the Pallas
-test's rtol 1e-5 / atol 1e-4 (``tests/test_kernels.py``), plus half a
-bf16 ulp of the plain value for a bf16 result.  TF32 is off for the
-plain version's matmul.
+dequantized weights and sum in f32 in other orders (the bf16 kernel on
+the tensor cores, whose bf16 products of x and (code - 8) are exact), so
+the Pallas test's rtol 1e-5 / atol 1e-4 (``tests/test_kernels.py``),
+plus half a bf16 ulp of the plain value for a bf16 result.  TF32 is off
+for the plain version's matmul.  Every kernel sums in a fixed order (no
+float atomics), so two calls on one input are held bit-equal.
 
 Tolerance, contiguous decode attention: as for the paged kernel (1e-5,
 plus half a bf16 ulp for a bf16 result): the same values, float32
@@ -222,7 +224,7 @@ def _q4_excess(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 3, 8, 9, 128, 200])
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 16, 64, 127, 128, 129, 200])
 @pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 1024), (2048, 6144),
                                  (6144, 2048), (128, 64), (320, 36)])
 def test_q4_kernel_matches_plain_version(x_dtype, M, K, N):
@@ -236,6 +238,22 @@ def test_q4_kernel_matches_plain_version(x_dtype, M, K, N):
     assert got.dtype == x_dtype and got.shape == (M, N)
     excess, err = _q4_excess(got, want)
     assert excess <= 0, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 1024), (8, 6144, 2048),
+                                   (128, 2048, 6144), (129, 320, 36),
+                                   (3, 2048, 2048)])
+def test_q4_kernel_is_repeatable(x_dtype, M, K, N):
+    """Two calls on the same input give the same bits: the K slices are
+    summed in a fixed order (no float atomics)."""
+    dev = _device()
+    x, packed, scales = _q4_case(M * 3 + K + N, M, K, N, x_dtype, dev)
+    first = q4_gemm(x, packed, scales)
+    second = q4_gemm(x, packed, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -488,6 +506,94 @@ def test_ring_kernel_matches_plain_version(B):
                         window=window, softcap=softcap)
                     excess, err = _max_excess(got, want, live)
                     assert excess <= 0, (n_written, window, softcap, err)
+
+
+#: head groups G at head dims D, both cache types: every G * D the
+#: wrapper takes (G * D <= 4096)
+_GROUPS = [(G, D) for G in (1, 2, 8, 10, 16, 32) for D in (32, 128, 256)
+           if G * D <= 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D", _GROUPS)
+def test_contiguous_kernel_head_groups(dtype, G, D):
+    """Head groups cut into head chunks of at most 8 (G = 10 as two of 5),
+    over a wrapped ring and in the TPU form."""
+    dev = _device()
+    B, S, H = 2, 300, 2
+    q, k, v = _cache_case(G * 7 + D, B=B, S=S, H=H, G=G, D=D, dtype=dtype,
+                          dev=dev)
+    live = torch.ones(B, H, G, D, dtype=torch.bool, device=dev)
+    pos = ring_positions(700, S, dev)
+    for kw in (dict(kv_positions=pos, q_pos=699, window=256),
+               dict(kv_len=S - 17)):
+        got = decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = tref.decode_attention_ref(q, k, v, **kw)
+        assert got.dtype == q.dtype and torch.isfinite(got).all()
+        excess, err = _max_excess(got, want, live)
+        assert excess <= 0, (kw.get("q_pos"), err)
+
+
+def _split_edges(S, G, D, itemsize, B, H):
+    """The slot edges of the contiguous kernel's splits for this shape."""
+    ng = kda.contiguous_heads_per_block(G)
+    n_split, chunk = kda.contiguous_split_plan(
+        S, G, D, itemsize, B * H * -(-G // ng),
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return n_split, chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_kernel_edges(dtype):
+    """RecurrentGemma's group (G = 10, D = 256) over a 560-slot ring, a
+    full cluster of splits: nothing valid (an empty ring, and a query
+    before every written position), one valid slot, windows whose edge
+    falls on a split edge and one either side, and rings that are
+    filling, full and wrapped."""
+    dev = _device()
+    B, S, H, G, D = 4, 560, 1, 10, 256
+    q, k, v = _cache_case(31, B=B, S=S, H=H, G=G, D=D, dtype=dtype, dev=dev)
+    live = torch.ones(B, H, G, D, dtype=torch.bool, device=dev)
+    n_split, chunk = _split_edges(S, G, D, k.element_size(), B, H)
+    assert n_split > 1
+    empty = torch.full((S,), -1, dtype=torch.int32, device=dev)
+    cases = [(empty, 10, 0), (ring_positions(S, S, dev), -1, 0),
+             (ring_positions(1, S, dev), 0, 0),        # one valid slot
+             (ring_positions(S, S, dev), S - 1, 1)]    # window of one
+    for n_written in (chunk, 3 * chunk + 1, S, 2 * S + chunk - 1):
+        pos = ring_positions(n_written, S, dev)
+        for window in (0, chunk - 1, chunk, chunk + 1, 2048):
+            cases.append((pos, n_written - 1, window))
+    for pos, q_pos, window in cases:
+        for softcap in (0.0, 30.0):
+            kw = dict(kv_positions=pos, q_pos=q_pos, window=window,
+                      softcap=softcap)
+            got = decode_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = tref.decode_attention_ref(q, k, v, **kw)
+            assert torch.isfinite(got).all()
+            excess, err = _max_excess(got, want, live)
+            assert excess <= 0, (q_pos, window, softcap, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_contiguous_kernel_is_repeatable(dtype):
+    """Two calls on the same input give the same bits, in both forms: the
+    splits are merged in split order (no float atomics)."""
+    dev = _device()
+    q, k, v = _cache_case(5, B=4, S=560, H=1, G=10, D=256, dtype=dtype,
+                          dev=dev)
+    pos = ring_positions(1500, 560, dev)
+    for kw in (dict(kv_positions=pos, q_pos=1499, window=2048),
+               dict(kv_len=300)):
+        first = decode_attention(q, k, v, **kw)
+        second = decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

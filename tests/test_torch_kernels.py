@@ -233,18 +233,41 @@ def test_paged_split_plan_covers_each_valid_page_once(max_pages, ps, blocks,
         assert (n_split, chunk) == (16, 4)
 
 
-@pytest.mark.parametrize("pairs", [1, 8, 64, 1000])
+@pytest.mark.parametrize("pairs", [1, 2, 8, 16, 64, 1000])
 def test_contiguous_split_plan_covers_each_slot_once(pairs):
-    for n_slots in range(0, 300, 7):
-        n_split, chunk = kda.split_plan(n_slots, kda.MIN_SPLIT_SLOTS, pairs,
-                                        kda.BLOCKS_PER_SM, 132)
-        assert 1 <= n_split <= kda.MAX_SPLITS
-        # no more splits than whole MIN_SPLIT_SLOTS runs of slots
-        assert n_split <= max(1, -(-n_slots // kda.MIN_SPLIT_SLOTS))
-        slots = [s for z in range(n_split)
-                 for s in range(z * chunk, min((z + 1) * chunk, n_slots))]
-        assert slots == list(range(n_slots)), n_slots
-        assert n_slots == 0 or (n_split - 1) * chunk < n_slots
+    """The contiguous kernel's plan for ``pairs`` (sequence, kv head, head
+    chunk) triples: every slot in exactly one split, none past the end, at
+    most a cluster's 16 splits, and no split shorter than its state's
+    round trip costs in K/V bytes (the cost model of
+    ``csrc/decode_attention.cu``)."""
+    for G, D, itemsize in ((10, 256, 2), (2, 128, 2), (4, 32, 4),
+                           (32, 128, 2)):
+        min_slots = -(-2 * (G * D + 2 * G) * 4 // (2 * D * itemsize))
+        for n_slots in range(0, 300, 7):
+            n_split, chunk = kda.contiguous_split_plan(n_slots, G, D,
+                                                       itemsize, pairs, 132)
+            assert 1 <= n_split <= kda.CONTIGUOUS_MAX_SPLITS
+            # no more splits than whole min_slots runs of slots
+            assert n_split <= max(1, -(-n_slots // min_slots))
+            slots = [s for z in range(n_split)
+                     for s in range(z * chunk, min((z + 1) * chunk,
+                                                   n_slots))]
+            assert slots == list(range(n_slots)), n_slots
+            assert n_slots == 0 or (n_split - 1) * chunk < n_slots
+    # RecurrentGemma's ring at the serving state: B = 4, MQA, G = 10 in
+    # two head chunks of 5, D = 256 bf16, 560 slots: a full cluster
+    if pairs == 8:
+        assert kda.contiguous_heads_per_block(10) == 5
+        assert kda.contiguous_split_plan(560, 10, 256, 2, 8, 132) == (16, 35)
+
+
+@pytest.mark.parametrize("G,ng", [(1, 1), (2, 2), (3, 4), (5, 5), (8, 8),
+                                  (10, 5), (16, 8), (17, 8), (32, 8)])
+def test_contiguous_heads_per_block_cover_the_group(G, ng):
+    got = kda.contiguous_heads_per_block(G)
+    assert got == ng and got <= kda.CONTIGUOUS_MAX_HEADS
+    n_gc = -(-G // got)
+    assert (n_gc - 1) * got < G <= n_gc * got
 
 
 def _emulate_split_merge(q, k, v, bt, lens, window, softcap, n_split,
@@ -412,6 +435,133 @@ def test_ring_form_matches_flash_attention_over_the_ring(n_written, window,
                             q_offset=q_pos, kv_positions=tpos, chunk=16,
                             softcap=softcap)
     np.testing.assert_allclose(flash.numpy(), want, **TOL)
+
+
+def _emulate_contiguous(q, k, v, *, kv_len=None, kv_positions=None,
+                        q_pos=None, window=0, softcap=0.0, sms=132):
+    """Plain-torch emulation of ``csrc/decode_attention.cu``'s partition
+    and merge, at the wrapper's plan (:func:`contiguous_split_plan`,
+    :func:`contiguous_heads_per_block`): per (sequence, kv head, head
+    chunk, split) the list of valid slots in slot order, dealt to the
+    block's token streams as the kernel deals them (list index j to
+    stream ``(j % T_tile) % NS``), each stream's (m, l, acc) in log2
+    units, the streams combined, then the cluster merge's formula, with
+    the mean of V where no slot is valid.  Empty splits leave NaN in
+    their acc, which the merge must never read."""
+    B, H, G, D = q.shape
+    S, itemsize = k.shape[1], k.element_size()
+    if kv_positions is None:
+        lo = max(kv_len - window, 0) if window > 0 else 0
+        hi, q_pos = max(min(kv_len, S), 0), kv_len - 1
+        pos = torch.arange(S)
+    else:
+        lo, hi, pos = 0, S, kv_positions.long()
+    ok = (pos >= 0) & (pos <= q_pos)
+    if window > 0:
+        ok &= pos > q_pos - window
+    ng = kda.contiguous_heads_per_block(G)
+    n_gc = -(-G // ng)
+    n_split, chunk = kda.contiguous_split_plan(max(hi - lo, 0), G, D,
+                                               itemsize, B * H * n_gc, sms)
+    ch = 2 if itemsize == 4 else 1                 # 16-byte chunks a lane
+    lanes = -(-(D * itemsize // 16) // ch)
+    tg = 1
+    while tg < lanes:
+        tg *= 2
+    ns = 4 * (32 // tg)                            # token streams a block
+    t_tile = 4 * ns                                # kR = 4 slots a stream
+    log2e = 1.0 / math.log(2.0)
+    scale = 1.0 / math.sqrt(D)
+    neg = tref.NEG_INF
+    m = torch.full((B, H, n_split, G), neg)
+    l = torch.zeros((B, H, n_split, G))
+    acc = torch.full((B, H, n_split, G, D), float("nan"))
+    for b in range(B):
+        for h in range(H):
+            for z in range(n_split):
+                s0 = lo + z * chunk
+                lst = [s for s in range(s0, min(hi, s0 + chunk)) if ok[s]]
+                if not lst:
+                    continue
+                for gc in range(n_gc):
+                    heads = list(range(gc * ng, min(G, gc * ng + ng)))
+                    streams = []
+                    for sid in range(ns):
+                        js = [j for j in range(len(lst))
+                              if (j % t_tile) % ns == sid]
+                        if not js:
+                            continue
+                        slots = torch.tensor([lst[j] for j in js])
+                        sc = q[b, h, heads].float() @ k[b, slots, h].float().T
+                        if softcap:
+                            sc = torch.tanh(sc * scale / softcap) * softcap
+                        else:
+                            sc = sc * scale
+                        sc = sc * log2e
+                        ms = sc.max(-1).values
+                        pr = torch.exp2(sc - ms[:, None])
+                        streams.append((ms, pr.sum(-1),
+                                        pr @ v[b, slots, h].float()))
+                    mx = torch.stack([st[0] for st in streams]).max(0).values
+                    wts = [torch.exp2(st[0] - mx) for st in streams]
+                    m[b, h, z, heads] = mx
+                    l[b, h, z, heads] = sum(w * st[1]
+                                            for w, st in zip(wts, streams))
+                    acc[b, h, z, heads] = sum(w[:, None] * st[2]
+                                              for w, st in zip(wts, streams))
+    out = torch.zeros((B, H, G, D))
+    for b in range(B):
+        for h in range(H):
+            live = l[b, h, :, 0] > 0
+            if not bool(live.any()):              # nothing valid anywhere
+                out[b, h] = v[b, :, h].float().mean(0)
+                continue
+            mx = m[b, h][live].max(0).values
+            w = torch.exp2(m[b, h][live] - mx)
+            den = (w * l[b, h][live]).sum(0)
+            out[b, h] = ((w / den)[..., None] * acc[b, h][live]).sum(0)
+    return out
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("G", [2, 10])
+def test_contiguous_split_and_merge_emulation_matches_the_plain_version(
+        G, window, softcap):
+    """The redesigned contiguous kernel's partition (splits that pay for
+    their merge, head chunks of at most 8, token streams) and merge, in
+    plain torch, against the plain version and the JAX functions: the
+    Pallas kernel (interpret mode) in the TPU form where it applies (no
+    window, no softcap), ``flash_attention`` over the ring otherwise.
+    Tolerance 1e-5: float32 throughout, another summation order."""
+    B, S, H, D = 3, 96, 2, 64
+    q, k, v = (torch.from_numpy(_rand(shape, seed)) for shape, seed in
+               (((B, H, G, D), 11), ((B, S, H, D), 12), ((B, S, H, D), 13)))
+    kw = dict(window=window, softcap=softcap)
+    for kv_len in (0, 1, 20, 57, S):
+        got = _emulate_contiguous(q, k, v, kv_len=kv_len, **kw)
+        want = tref.decode_attention_ref(q, k, v, kv_len, **kw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+        if window == 0 and softcap == 0.0:
+            pallas = np.asarray(pallas_decode(
+                *(jnp.asarray(t.numpy()) for t in (q, k, v)), kv_len,
+                block_s=32, interpret=True))
+            np.testing.assert_allclose(got.numpy(), pallas, **TOL)
+    for n_written in (5, S, 250):                 # filling, full, wrapped
+        pos = torch.from_numpy(_ring(n_written, S))
+        got = _emulate_contiguous(q, k, v, kv_positions=pos,
+                                  q_pos=n_written - 1, **kw)
+        want = tref.decode_attention_ref(q, k, v, kv_positions=pos,
+                                         q_pos=n_written - 1, **kw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+        jq = jnp.asarray(q.reshape(B, 1, H * G, D).numpy())
+        jflash = np.asarray(j_flash_attention(
+            jq, jnp.asarray(k.numpy()), jnp.asarray(v.numpy()), causal=True,
+            window=window, q_offset=n_written - 1,
+            kv_positions=jnp.asarray(pos.numpy()), chunk=16,
+            softcap=softcap))
+        np.testing.assert_allclose(got.reshape(B, 1, H * G, D).numpy(),
+                                   jflash, **TOL)
 
 
 @pytest.mark.parametrize("kv_offset,kv_len", [(0, None), (8, None), (8, 30)])

@@ -40,6 +40,7 @@ from repro.quant import kv_int8 as jkv
 from repro.quant import policy as jpolicy
 from repro.quant import q4_0 as jq4
 from repro_torch.kernels import ops
+from repro_torch.kernels import q4_gemm as tqg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.q4_gemm import q4_gemm as cuda_q4_gemm
 from repro_torch.models import ModelConfig
@@ -211,6 +212,75 @@ def test_q4_gemm_ref_matches_pallas_and_oracle(M, K, N, bn, bk, xdtype):
     assert out.dtype == tx.dtype
     np.testing.assert_array_equal(out.numpy() if xdtype == "float32"
                                   else _np(out), _np(got.to(tx.dtype)))
+
+
+def _emulate_q4_mma(x, packed, scales, sms=132):
+    """Plain-torch emulation of ``csrc/q4_gemm.cu``'s bf16 tensor-core
+    path at the wrapper's plan (:func:`q4_plan`): K cut into slices of
+    64-k stages; per 32-k Q4_0 block, the f32 sum of exact products of
+    bf16 x and the integer (code - 8), then times that block's column
+    scales and added to a running f32 total: the slice's (prefill
+    kernel), or at M <= 8 (decode kernel) that of warp ``kg``, which takes
+    the slice's stages kg, kg + 4, ..., the 4 warps' totals then summed in
+    warp order; the slices summed in slice order (the cluster reduce); the
+    result rounded to bf16.  Returns (out, plan)."""
+    M, K = x.shape
+    N = packed.shape[1]
+    rows, n_split, sps = tqg.q4_plan(M, K, N, sms)
+    groups = tqg.DECODE_WARPS if rows == 8 else 1
+    codes = torch.empty((K, N), dtype=torch.float32)
+    codes[0::2] = (packed & 15).float() - 8        # low nibble: even k
+    codes[1::2] = (packed >> 4).float() - 8
+    xf = x.float()
+    stages = -(-K // tqg.STAGE_K)
+    seen, total = [], torch.zeros((M, N))
+    for z in range(n_split):
+        slice_stages = range(z * sps, min(stages, (z + 1) * sps))
+        part = torch.zeros((M, N))
+        for kg in range(groups):
+            acc = torch.zeros((M, N))
+            for st in slice_stages[kg::groups]:
+                for kb in (2 * st, 2 * st + 1):
+                    if kb * 32 >= K:
+                        break
+                    seen.append(kb)
+                    blk = xf[:, kb * 32:(kb + 1) * 32] @ codes[kb * 32:
+                                                               (kb + 1) * 32]
+                    acc = acc + blk * scales[kb]
+            part = part + acc
+        total = total + part
+    assert sorted(seen) == list(range(K // 32)), "each Q4_0 block once"
+    return total.to(torch.bfloat16), (rows, n_split, sps)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 64, 127, 129])
+@pytest.mark.parametrize("K,N,bk", [(320, 36, 64), (2048, 64, 256),
+                                    (256, 128, 256)])
+def test_q4_mma_emulation_matches_plain_and_pallas(M, K, N, bk):
+    """The redesigned bf16 Q4_0 kernel's partition (split-K slices, per
+    block sums, fixed-order reduce) in plain torch, against the plain
+    version and the Pallas kernel (interpret mode).  Tolerance: the
+    kernel's, |d| <= 1e-4 + 1e-5 |plain| plus half a bf16 ulp of the
+    plain value (the result is rounded to bf16): every product is exact,
+    only the f32 summation order differs."""
+    rng = np.random.default_rng(M * 7 + K + N)
+    w = (rng.normal(size=(K, N)) / np.sqrt(K)).astype(np.float32)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    jp, js = jq4.quantize(jnp.asarray(w))
+    tp, ts = torch.from_numpy(_np(jp)), torch.from_numpy(_np(js))
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    got, (rows, n_split, sps) = _emulate_q4_mma(tx, tp, ts)
+    assert rows >= min(M, 64) and n_split >= 1
+    if (K, N) == (2048, 64) and M <= 8:
+        assert n_split > 1, "decode shapes take several K slices"
+    want = tref.q4_gemm_ref(tx, tp, ts)
+    pallas = np.asarray(pallas_q4_gemm(jnp.asarray(x, jnp.bfloat16), jp, js,
+                                       block_n=N, block_k=bk,
+                                       interpret=True))
+    for ref_out in (want.numpy(), pallas):
+        err = np.abs(got.float().numpy() - ref_out)
+        tol = 1e-4 + (1e-5 + 2.0 ** -8) * np.abs(ref_out)
+        assert (err <= tol).all(), err.max()
 
 
 def test_q4_kernel_refuses_cpu_tensors_and_bad_impl():
