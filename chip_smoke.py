@@ -67,15 +67,18 @@ non-zero if any phase fails, or if no CUDA device is present:
    560) and in the ring form (filling, full and wrapped rings, windows 7
    and 2048, softcap 0 and 30), and at the Qwen3 (8 / 16 heads, D=128,
    bf16) and bench-tiny (2 / 4 heads, D=32, f32) shapes;
-10. the RG-LRU scan kernel vs its plain version at (4, 512, 2560),
-    (8, 256, 2560), (2, 37, 64) and (4, 1, 2560), with and without h0:
-    bit for bit;
+10. the RG-LRU scan kernel vs its plain version, with and without h0, bit
+    for bit: (4, 512, 2560), (8, 256, 2560), (1, 2048, 2560), T around a
+    multiple of the plan's stage (511, 513) and one step short of and past
+    a stage, T = 1, and W = 64, 6 and 36 (a ragged last strip; 6 and 36
+    off the 16-byte unit of the tensor copies);
 11. timing of both, inputs rotated past the L2: the decode kernel at B=4
     and 8, kv_len 544 and 2048 over a ring, beside its plain version, its
     byte bound and ``scaled_dot_product_attention`` with a boolean mask
-    (the yardstick the port never calls); the scan at (4, 512, 2560)
-    beside its plain version and byte bound (no PyTorch call computes
-    this recurrence);
+    (the yardstick the port never calls); the scan at (4, 512, 2560),
+    (4, 256, 2560), (1, 512, 2560) and (1, 2048, 2560) beside its plain
+    version, its byte bound and its plan (no PyTorch call computes this
+    recurrence);
 12. serve full-width RecurrentGemma-2B (26 layers, bf16, weights drawn
     from a seeded ``torch.Generator``) through ``ServingEngine`` /
     ``BucketRunner``: 8 requests, four prompts of 256 random tokens and
@@ -84,15 +87,20 @@ non-zero if any phase fails, or if no CUDA device is present:
     decode steps, scan kernel = 18 x prefill calls);
 13. parity on the card: prefill logits with the scan kernel against the
     plain scan, and one decode step with the kernels against the plain
-    versions on a clone of the ring cache; then a decode step is
-    profiled (the contiguous kernel must run once per attention layer).
+    versions on a clone of the ring cache; then a prefill call of the
+    512-token bucket (B=4) is profiled by kernel (the scan must run once
+    per RG-LRU layer; its share of the call is printed) and a decode step
+    (the contiguous kernel must run once per attention layer).
 
 The build phase prints nvcc's register and spill report for every
-kernel.  It prints one JSON line ``{"kernels": [...]}`` before the last
-line (the contiguous kernel's entry carries all four timed shapes with
-their SDPA times and bounds, the Q4_0 entry its M=8 and M=128 times and
-bounds by shape and its device time in a decode step and a prefill
-chunk), and as the last line ``{"ok": true, "device": {...}}``.  Nothing
+kernel, and the scan's plan and shared memory at its timed shapes.  It
+prints one JSON line ``{"kernels": [...]}`` before the last line (the
+contiguous kernel's entry carries all four timed shapes with their SDPA
+times and bounds, the Q4_0 entry its M=8 and M=128 times and bounds by
+shape and its device time in a decode step and a prefill chunk, the scan
+entry its four timed shapes with their plans and its device time in the
+profiled prefill call), and as the last line ``{"ok": true, "device":
+{...}}``.  Nothing
 here imports JAX or the reference package.
 """
 
@@ -703,12 +711,26 @@ def check_decode_kernel(torch, ref, kern, gen, dev="cuda"):
     return max_err
 
 
-def check_scan_kernel(torch, ref, kern, gen, dev="cuda"):
+def scan_stage_edge(plan, B, W, edge, sms):
+    """The first T whose scan plan's stage is T - edge steps long: edge -1
+    is one step short of a stage, +1 one step past it."""
+    return next(T for T in range(2, 4096) if plan(B, T, W, sms)[1] == T - edge)
+
+
+def check_scan_kernel(torch, ref, kern, plan, sms, gen, dev="cuda"):
     """Phase 10: the RG-LRU scan kernel against its plain version, bit
-    for bit.  Returns the largest |kernel - plain|."""
+    for bit: the prefill buckets' shapes, one prompt at the window length,
+    T around a multiple of the stage and one step short of and past the
+    stage of ``plan`` on ``sms`` SMs, T = 1, and widths off the 16-byte
+    unit of the tensor copies (6, 36: the 4-byte path) or of 32 (36, 64:
+    a ragged last strip).  Returns the largest |kernel - plain|."""
     max_err = 0.0
-    for B, T, W in ((4, 512, 2560), (8, 256, 2560), (2, 37, 64),
-                    (4, 1, 2560)):
+    shapes = [(4, 512, 2560), (8, 256, 2560), (1, 2048, 2560),
+              (4, 511, 2560), (4, 513, 2560), (2, 37, 64), (4, 1, 2560),
+              (2, 37, 6), (2, 100, 36)]
+    shapes += [(4, scan_stage_edge(plan, 4, 2560, e, sms), 2560)
+               for e in (-1, 1)]
+    for B, T, W in shapes:
         a = 0.5 + 0.5 * torch.rand(B, T, W, generator=gen, device=dev)
         u = torch.randn(B, T, W, generator=gen, device=dev)
         h0 = torch.randn(B, W, generator=gen, device=dev)
@@ -722,7 +744,8 @@ def check_scan_kernel(torch, ref, kern, gen, dev="cuda"):
                      f"kernel disagrees with the plain version ({err:.3e})")
             max_err = max(max_err, err)
             print(f"[kernel] rglru_scan ({B}, {T}, {W}) h0="
-                  f"{h is not None}: max|kernel-plain| {err:.3e}")
+                  f"{h is not None}: max|kernel-plain| {err:.3e}, plan "
+                  f"{getattr(kern, 'plan', None)}")
     return max_err
 
 
@@ -772,26 +795,39 @@ def time_decode_kernel(torch, F, ref, kern, gen, card, dev="cuda"):
     return out
 
 
+#: the scan's timed shapes (B, T, W): the 512- and 256-token prefill
+#: buckets of four prompts, one 512-token prompt, one prompt at the
+#: window length; the first is the main path's
+SCAN_SHAPES = ((4, 512, 2560), (4, 256, 2560), (1, 512, 2560),
+               (1, 2048, 2560))
+
+
 def time_scan_kernel(torch, ref, kern, gen, card, dev="cuda"):
-    """Phase 11b: the scan at (4, 512, 2560) with a zero h0, as a prefill
-    of the 512-token bucket runs it; a and u rotated past the L2.
-    Returns (kernel ms, plain ms, bound ms, bound_by)."""
-    B, T, W = 4, 512, 2560
-    n = max(2, math.ceil(ROTATE_BYTES / (2 * B * T * W * 4)))
-    As = [0.5 + 0.5 * torch.rand(B, T, W, generator=gen, device=dev)
-          for _ in range(n)]
-    Us = [torch.randn(B, T, W, generator=gen, device=dev)
-          for _ in range(n)]
-    h0 = torch.zeros(B, W, device=dev)
-    t_k = cuda_ms(torch, lambda i: kern(As[i % n], Us[i % n], h0), 50)
-    t_p = cuda_ms(torch, lambda i: ref.rglru_scan_ref(As[i % n], Us[i % n],
-                                                      h0), 3)
-    b_ms, b_by = least(12 * B * T * W + 4 * B * W, 2 * B * T * W, "float32")
-    print(f"[timing] rglru_scan ({B}, {T}, {W}) f32: kernel {t_k * 1e3:.1f} "
-          f"us, plain {t_p * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
-          f"({b_by}); no single PyTorch call computes this recurrence — "
-          f"{card}")
-    return t_k, t_p, b_ms, b_by
+    """Phase 11b: the scan at SCAN_SHAPES with a zero h0, as a prefill
+    runs it; a and u rotated past the L2.  Returns {(B, T, W): (kernel
+    ms, plain ms, bound ms, bound_by, plan)}."""
+    out = {}
+    for B, T, W in SCAN_SHAPES:
+        n = max(2, math.ceil(ROTATE_BYTES / (2 * B * T * W * 4)))
+        As = [0.5 + 0.5 * torch.rand(B, T, W, generator=gen, device=dev)
+              for _ in range(n)]
+        Us = [torch.randn(B, T, W, generator=gen, device=dev)
+              for _ in range(n)]
+        h0 = torch.zeros(B, W, device=dev)
+        t_k = cuda_ms(torch, lambda i: kern(As[i % n], Us[i % n], h0), 100)
+        t_p = cuda_ms(torch, lambda i: ref.rglru_scan_ref(
+            As[i % n], Us[i % n], h0), 3)
+        b_ms, b_by = least(12 * B * T * W + 4 * B * W, 2 * B * T * W,
+                           "float32")
+        plan = getattr(kern, "plan", None)
+        out[(B, T, W)] = (t_k, t_p, b_ms, b_by, plan)
+        print(f"[timing] rglru_scan ({B}, {T}, {W}) f32: kernel "
+              f"{t_k * 1e3:.2f} us (roofline share {b_ms / t_k:.0%}), plain "
+              f"{t_p * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}); "
+              f"plan (warps a block, steps a stage, stages) {plan}; no "
+              f"single PyTorch call computes this recurrence — {card}")
+        del As, Us
+    return out
 
 
 def check_repeatable(torch, gen, kernels, quantize_rows, q4_0, dev="cuda"):
@@ -913,12 +949,40 @@ def serve_recurrentgemma(torch, np, kernels, card, dev="cuda", cfg=None,
     return model, eng, prompts, launches, calls
 
 
+def prefill_profile(torch, model, params, toks, max_len, card, dev="cuda"):
+    """One full-width prefill call of the bucket ``toks`` profiled by
+    kernel: the scan must run once per RG-LRU layer.  Returns (device ms
+    of the call, the scan's device ms in it)."""
+    cache = model.init_cache(toks.shape[0], max_len, device=dev)
+
+    def run():
+        model.prefill(params, {"tokens": toks}, cache)
+
+    run()
+    torch.cuda.synchronize()
+    by_kernel = kernel_times(torch, run, 2)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    scan_ms, scan_n = kernel_share(by_kernel, ("rglru_scan",))
+    n_rglru = model.kinds.count("rglru")
+    if round(scan_n) != n_rglru:
+        fail(f"RecurrentGemma prefill: {scan_n:.0f} rglru_scan launches a "
+             f"call, not {n_rglru}")
+    print(f"[profile] full-width RecurrentGemma prefill (B={toks.shape[0]}, "
+          f"{toks.shape[1]} tokens): device busy {busy:.2f} ms; rglru_scan "
+          f"{scan_ms * 1e3:.1f} us over {scan_n:.0f} launches "
+          f"({scan_ms / scan_n * 1e3:.2f} us a call), {scan_ms / busy:.1%} "
+          f"of the call — {card}")
+    print_top(by_kernel)
+    return busy, scan_ms
+
+
 def rg_parity(torch, model, params, prompts, card, dev="cuda"):
     """Phase 13: from the 512-token bucket's prompts, prefill with the
     scan kernel and with the plain scan (fresh ring caches), then one
     decode step with the kernels and with the plain versions on a clone
-    of the cache; logits must agree.  Then a decode step is profiled.
-    Returns the device ms per step by kernel name."""
+    of the cache; logits must agree.  Then a prefill call of that bucket
+    and a decode step are profiled.  Returns the device ms per step by
+    kernel name, and the prefill's device ms and the scan's in it."""
     from repro_torch.models.weights import tree_map
     B, S = 4, len(prompts[-1])
     toks = torch.tensor(prompts[-B:], dtype=torch.long, device=dev)
@@ -931,6 +995,7 @@ def rg_parity(torch, model, params, prompts, card, dev="cuda"):
     logit_parity(torch, got, want, LOGIT_TOL_RG,
                  "RecurrentGemma prefill logits, scan kernel vs plain")
     del plain_cache
+    prefill = prefill_profile(torch, model, params, toks, max_len, card, dev)
     fed = got[:, 0].float().argmax(-1, keepdim=True)
     clone = tree_map(lambda t: t.clone(), cache)
     got, _ = model.decode_step(params, cache, fed, S)
@@ -940,7 +1005,7 @@ def rg_parity(torch, model, params, prompts, card, dev="cuda"):
     del clone
     return profile_step(torch, lambda p_: model.decode_step(
         params, cache, fed, p_), S + 1, "full-width RecurrentGemma", card,
-        batch=B)
+        batch=B), prefill
 
 
 def main() -> int:
@@ -992,8 +1057,17 @@ def main() -> int:
         print(f"[build] {name}: nvcc {rec['seconds']:.2f} s, "
               f"cached={rec['cached']}")
         for line in str(rec["ptxas"]).splitlines():
-            if "registers" in line or "spill" in line:
+            # the scan's instantiations (STEPS, path) are named, so that
+            # its registers can be read by kernel
+            if "registers" in line or "spill" in line or (
+                    name == rs.KERNEL and "entry function" in line):
                 print(f"[build]   {line.strip()}")
+    for B_, T_, W_ in SCAN_SHAPES:
+        plan = rs.scan_plan(B_, T_, W_, build.sm_count(0))
+        print(f"[build] rglru_scan plan at ({B_}, {T_}, {W_}): {plan[0]} "
+              f"warp(s) a block, {plan[1]} steps a stage, {plan[2]} stages; "
+              f"{rs.scan_smem(*plan)} bytes of dynamic shared memory a "
+              f"block")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1287,11 +1361,12 @@ def main() -> int:
     del eng, cache, clone, got, want, qparams, model
     torch.cuda.empty_cache()
     err_da = check_decode_kernel(torch, ref, da.decode_attention, gen)
-    err_rs = check_scan_kernel(torch, ref, rs.rglru_scan, gen)
+    err_rs = check_scan_kernel(torch, ref, rs.rglru_scan, rs.scan_plan,
+                               build.sm_count(0), gen)
     da_times = time_decode_kernel(torch, F, ref, da.decode_attention, gen,
                                   card)
-    t_rs, t_rs_p, b_rs, b_rs_by = time_scan_kernel(torch, ref,
-                                                   rs.rglru_scan, gen, card)
+    rs_times = time_scan_kernel(torch, ref, rs.rglru_scan, gen, card)
+    t_rs, t_rs_p, b_rs, b_rs_by, rs_plan = rs_times[SCAN_SHAPES[0]]
     torch.cuda.empty_cache()
 
     # -- 12. serve full-width RecurrentGemma-2B (bucket engine) ----------
@@ -1315,7 +1390,8 @@ def main() -> int:
           f"{n_rglru} x {calls['prefill']} prefill calls")
 
     # -- 13. parity on the card, profile ---------------------------------
-    by_kernel = rg_parity(torch, model, eng.runner.params, prompts, card)
+    by_kernel, (prefill_ms, prefill_scan_ms) = rg_parity(
+        torch, model, eng.runner.params, prompts, card)
     # the contiguous kernel is one launch (its splits merge in a cluster)
     # per attention layer
     da_dev, da_n = kernel_share(by_kernel, ("decode_attn_kernel",))
@@ -1420,6 +1496,13 @@ def main() -> int:
         "bound_ms": b_rs,
         "bound_by": b_rs_by,
         "library_ms": None,
+        "plan": rs_plan,
+        "by_shape": [{"B": B_, "T": T_, "W": W_, "ms": t[0],
+                      "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                      "plan": t[4]}
+                     for (B_, T_, W_), t in rs_times.items()],
+        "prefill_device_ms": prefill_ms,
+        "prefill_scan_device_ms": prefill_scan_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,8 +13,9 @@ vlm / audio).  The per-layer structure is a tuple of *layer kinds*:
     "ssd"    — Mamba-2 SSD mixer block (no separate FFN)
 
 If every layer has the same kind the stack is *uniform*: its
-parameters are stacked with a leading layer axis.  The port serves only
-uniform self-attention ("attn") stacks so far; the other kinds are
+parameters are stacked with a leading layer axis.  The port serves
+self-attention ("attn") stacks and the hybrid RG-LRU + local-attention
+stacks of RecurrentGemma ("rglru" with "attn"); the other kinds are
 described here so configs and parameter counts match the reference
 (``repro.models.config``).
 

@@ -101,8 +101,8 @@ class KVPoolConfig:
     n_shards: int = 1
     #: KV page element format ("fp32" | "int8" — the engine's
     #: ``--kv-dtype``).  "int8" pages hold 1-byte codes plus one f32
-    #: scale per (token row, kv head) (the reference package's
-    #: ``repro.quant.kv_int8``, not ported yet), so a token-head costs
+    #: scale per (token row, kv head) (``repro_torch.quant.kv_int8``, the
+    #: port of the reference's ``repro.quant.kv_int8``), so a token-head costs
     #: head_dim + 4 bytes instead of head_dim * dtype_bytes — the same
     #: pool byte budget holds ~dtype_bytes·D/(D+4) times the pages.  Page *accounting* (page
     #: ids, refcounts, prefix map, CoW, block tables) is byte-agnostic;

@@ -37,8 +37,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as krs
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
@@ -629,14 +631,32 @@ def test_gqa_decode_attention_launches_the_kernel_on_cuda_tensors():
 # RG-LRU scan
 # ----------------------------------------------------------------------
 
+def _stage_edge(B, W, edge, sms):
+    """The first T whose plan's stage is T - edge steps long: edge -1 is
+    one step short of a stage (a single short tile), +1 one step past it
+    (a full tile and a one-step tile)."""
+    return next(T for T in range(2, 4096)
+                if krs.scan_plan(B, T, W, sms)[1] == T - edge)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("B,T,W", [(4, 512, 2560), (8, 256, 2560),
-                                   (2, 37, 64), (3, 1, 5), (1, 33, 100)])
+@pytest.mark.parametrize("B,T,W", [
+    (4, 512, 2560), (8, 256, 2560),       # the prefill buckets' shapes
+    (1, 2048, 2560),                      # one prompt at the window length
+    (4, 511, 2560), (4, 513, 2560),       # a short last tile, a one-step one
+    (4, "stage-1", 2560), (4, "stage+1", 2560),
+    (2, 37, 64), (3, 1, 5), (1, 33, 100),
+    (2, 37, 6), (2, 100, 36)])
 def test_rglru_kernel_matches_plain_version(with_h0, B, T, W):
-    """The model's shapes, a ragged T and W (not multiples of the
-    kernel's 16-step chunk or 64-thread block), and T = 1."""
+    """The model's shapes; T one step short of and one past the plan's
+    stage, and around a multiple of it; T = 1; W not a multiple of 4 (5,
+    6: the 4-byte copies), of 32 (36, 100: a ragged last strip) or of
+    the 16-byte copy unit (W = 6 rows are 24 bytes)."""
     dev = _device()
+    edge = {"stage-1": -1, "stage+1": 1}.get(T)
+    if edge:
+        T = _stage_edge(B, W, edge, build.sm_count(dev.index or 0))
     rng = np.random.default_rng(B * T + W)
     a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, W))).to(dev,
                                                               torch.float32)
@@ -647,6 +667,72 @@ def test_rglru_kernel_matches_plain_version(with_h0, B, T, W):
     torch.cuda.synchronize()
     want = tref.rglru_scan_ref(a, u, h0)
     assert torch.equal(got, want), (got - want).abs().max().item()
+    if edge:
+        assert rglru_scan.plan[1] == T - edge, (T, rglru_scan.plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["a", "u", "h0"])
+def test_rglru_kernel_reads_inputs_off_16_byte_alignment(operand):
+    """An operand that starts 4 bytes past an aligned address: a or u
+    cannot be a tensor map's base, so the kernel takes its 4-byte path;
+    h0 is read directly.  The same bits either way."""
+    dev = _device()
+    B, T, W = 2, 50, 64
+    rng = np.random.default_rng(7)
+    ops_ = {"a": rng.uniform(0.5, 1.0, (B, T, W)),
+            "u": rng.normal(size=(B, T, W)), "h0": rng.normal(size=(B, W))}
+    t = {k: torch.from_numpy(v).to(dev, torch.float32)
+         for k, v in ops_.items()}
+    flat = torch.empty(t[operand].numel() + 1, device=dev)
+    shifted = flat[1:].view(t[operand].shape)
+    shifted.copy_(t[operand])
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    t[operand] = shifted
+    got = rglru_scan(t["a"], t["u"], t["h0"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.rglru_scan_ref(t["a"], t["u"], t["h0"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W", [(4, 512, 2560), (1, 2048, 2560),
+                                   (2, 37, 36)])
+def test_rglru_kernel_is_repeatable_and_replays_in_a_cuda_graph(B, T, W):
+    """Two calls on one input give the same bits, and so does a call
+    captured in a CUDA graph and replayed, also after a, u and h0 change
+    in place (the wrapper's tensor maps hold addresses, not values)."""
+    dev = _device()
+    rng = np.random.default_rng(T + W)
+
+    def draw():
+        return (torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, W))).to(
+                    dev, torch.float32),
+                torch.from_numpy(rng.normal(size=(B, T, W))).to(
+                    dev, torch.float32),
+                torch.from_numpy(rng.normal(size=(B, W))).to(
+                    dev, torch.float32))
+
+    a, u, h0 = draw()
+    eager = rglru_scan(a, u, h0)
+    assert torch.equal(eager, rglru_scan(a, u, h0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):             # warm-up off the capture
+        rglru_scan(a, u, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    before = rglru_scan.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rglru_scan(a, u, h0)
+    assert rglru_scan.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    for t, new in zip((a, u, h0), draw()):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, tref.rglru_scan_ref(a, u, h0))
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ reference's ``flash_attention`` over a wrapped ring, the contract of the
 ring decode step).  Tolerance 1e-5: every path computes in float32 from
 the same float32 inputs and differs only in summation order.  (The
 RG-LRU scan's plain version is held against the reference in
-``tests/test_torch_recurrent.py``.)
+``tests/test_torch_recurrent.py``; here its kernel's plan is checked
+against the card's shared memory, and the kernel's tile schedule,
+emulated in torch, against the plain version bit for bit.)
 
 The CUDA kernels themselves run only on a GPU: ``tests/test_torch_cuda.py``
 holds them against these plain versions there.
@@ -30,6 +32,7 @@ from repro.models.attention import flash_attention as j_flash_attention
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rglru_scan as krs
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -268,6 +271,109 @@ def test_contiguous_heads_per_block_cover_the_group(G, ng):
     assert got == ng and got <= kda.CONTIGUOUS_MAX_HEADS
     n_gc = -(-G // got)
     assert (n_gc - 1) * got < G <= n_gc * got
+
+
+# ----------------------------------------------------------------------
+# the RG-LRU scan's ring: the host's plan and the tile schedule
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,T,W", [
+    (4, 512, 2560),         # the 512-token bucket of RecurrentGemma-2B
+    (4, 256, 2560),         # the 256-token bucket
+    (1, 512, 2560),         # one 512-token prompt
+    (1, 2048, 2560),        # one prompt at the window length
+    (8, 256, 2560),
+    (64, 2048, 2560),       # more warps than one wave of rings holds
+    (3, 1, 5),
+    (2, 37, 64),
+    (2, 37, 6),
+])
+def test_scan_plan_fits_the_card_and_covers_the_channels(B, T, W):
+    """The scan kernel's plan: compiled stage lengths, a ring of at least
+    two stages and no deeper than T needs, a grid whose warps cover every
+    channel with no empty block, one block's rings within its shared
+    memory and, unless the ring is already the smallest, the blocks an SM
+    holds in one wave within the SM's; at RecurrentGemma's width the
+    grid's rings keep more than the card's latency-bandwidth product
+    (2.3 MB) in flight."""
+    sms = 132
+    wpb, steps, stages = krs.scan_plan(B, T, W, sms)
+    assert 1 <= wpb <= krs.SCAN_MAX_WARPS and steps in krs.SCAN_STEPS
+    assert 2 <= stages <= krs.SCAN_MAX_STAGES
+    assert stages - 1 <= max(1, -(-T // steps))
+    warps = B * -(-W // krs.LANES)
+    blocks = -(-warps // wpb)
+    assert blocks * wpb * krs.LANES >= B * W and (blocks - 1) * wpb < warps
+    block_smem = krs.scan_smem(wpb, steps, stages)
+    assert block_smem >= wpb * (stages + 1) * steps * krs.STEP_BYTES
+    assert block_smem <= krs.SMEM_PER_BLOCK
+    if (steps, stages) != (krs.SCAN_STEPS[0], 2):
+        per_sm = -(-blocks // sms)
+        assert per_sm * (block_smem + krs.SMEM_RESERVED_PER_BLOCK) \
+            <= krs.SMEM_PER_SM
+    if W == 2560 and B <= 8:
+        assert warps * (stages - 1) * steps * krs.STEP_BYTES > 2.3e6
+
+
+def _emulate_ring_scan(a, u, h0, steps, stages):
+    """Plain-torch emulation of the scan kernel's schedule for every warp
+    at once: tiles of ``steps`` steps (the last one short, zero-filled
+    past T) enter slot ``k % stages`` of the ring, ``stages - 1`` ahead;
+    the tile issued before tile k is consumed goes to the slot that tile
+    k - 1 held; each step is a product and then a sum, each rounded to
+    float32.  It checks the schedule's slot arithmetic and ragged edges,
+    not the kernel: the CUDA kernel is held against the plain version on
+    the card by ``test_rglru_kernel_matches_plain_version``."""
+    B, T, W = a.shape
+    tiles = -(-T // steps)
+    ring = [None] * stages                  # (tile, a tile, u tile)
+    consumed = set()
+
+    def issue(k):
+        if k >= tiles:
+            return
+        held = ring[k % stages]
+        assert held is None or held[0] in consumed, "slot refilled early"
+        t0, n = k * steps, min(steps, T - k * steps)
+        ta, tu = torch.zeros(B, steps, W), torch.zeros(B, steps, W)
+        ta[:, :n], tu[:, :n] = a[:, t0:t0 + n], u[:, t0:t0 + n]
+        ring[k % stages] = (k, ta, tu)
+
+    for k in range(stages - 1):
+        issue(k)
+    state = h0.clone() if h0 is not None else torch.zeros(B, W)
+    h = torch.empty_like(a)
+    for k in range(tiles):
+        issue(k + stages - 1)
+        tag, ta, tu = ring[k % stages]
+        assert tag == k, "the tile consumed is not the one in its slot"
+        for i in range(min(steps, T - k * steps)):
+            state = torch.add(ta[:, i] * state, tu[:, i])
+            h[:, k * steps + i] = state
+        consumed.add(k)
+    return h
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,W,plan", [
+    (2, 37, 64, None), (3, 1, 5, None), (1, 33, 6, None),
+    (2, 7, 36, None), (2, 9, 36, None),     # one short / past a stage of 8
+    (1, 40, 8, (8, 2)), (1, 40, 8, (32, 16)), (2, 65, 4, (16, 5)),
+    (1, 130, 8, (64, 3)),
+])
+def test_ring_scan_emulation_matches_the_plain_version(with_h0, B, T, W,
+                                                       plan):
+    """The tile schedule at the wrapper's plan (or a forced one) gives
+    the plain version's bits: T one short and one past a stage, T = 1,
+    a ragged last tile, a ring deeper than T and the shallowest ring."""
+    steps, stages = plan or krs.scan_plan(B, T, W, 132)[1:]
+    rng = np.random.default_rng(B * T + W)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, W)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(B, T, W)).astype(np.float32))
+    h0 = (torch.from_numpy(rng.normal(size=(B, W)).astype(np.float32))
+          if with_h0 else None)
+    got = _emulate_ring_scan(a, u, h0, steps, stages)
+    assert torch.equal(got, tref.rglru_scan_ref(a, u, h0))
 
 
 def _emulate_split_merge(q, k, v, bt, lens, window, softcap, n_split,
