@@ -61,31 +61,56 @@ non-zero if any phase fails, or if no CUDA device is present:
    profiled, as in 6 (the Q4_0 kernel must run 196 times in it); then one
    full-width 128-token prefill chunk is profiled by kernel (the Q4_0
    kernel again 196 times, at M=128);
-9. the contiguous decode-attention kernel vs its plain version: at
-   RecurrentGemma's decode shape (B 4 and 8, one kv head, G=10, D=256,
-   bf16 cache of 560 slots) in the TPU kernel's form (kv_len 0, 1, 300,
-   560) and in the ring form (filling, full and wrapped rings, windows 7
-   and 2048, softcap 0 and 30), and at the Qwen3 (8 / 16 heads, D=128,
-   bf16) and bench-tiny (2 / 4 heads, D=32, f32) shapes;
-10. the RG-LRU scan kernel vs its plain version, with and without h0, bit
+9. speculative verify parity, bf16 and then q4 + int8 (on phase 5's
+   weights, drawn again): from one prefilled state, 3 sequential decode
+   steps give each lane its greedy continuation; one verify step fed
+   those tokens as 2 drafts (S = 3) on a copy of the state must give
+   column j's logits within the tolerance of decode step j's (so every
+   draft with a clear top-2 margin is accepted), and so must its plain
+   version (plain paged attention, plain ``qmm``) against the kernels;
+   one verify step is profiled beside one decode step on that state
+   (the paged kernel's split and merge launches 3 x 28 times in it, the
+   Q4_0 kernel 196 times at M = 24);
+10. serve full-width Qwen3-1.7B through ``AsyncEngine`` with
+    ``spec_decode=2`` and then 0, bf16 and then q4 + int8: 4 requests of
+    128-512 tokens, each a random segment repeated (so prompt lookup
+    drafts), two sharing a 256-token prefix, 32 greedy tokens each, all
+    submitted at once, one streamed; checks the completions,
+    ``spec.drafted > 0``, paged launches = 28 x (decode steps + 3 x
+    verify steps), Q4_0 launches = 7 x 28 x forward calls (verify
+    included), the free pages back at their start, and the k=2 tokens
+    against k=0's under the margin rule (where they first differ, k=0's
+    top-2 margin there must be under the tolerance); prints the spec
+    counters, tokens per verify step, decode tok/s, TTFT and peak memory
+    of both;
+11. ``python -m repro_torch.launch.serve --engine async --spec-decode 2
+    --metrics-json M --trace T`` (reduced config, on the card) must exit
+    0, and ``python -m repro_torch.obs.validate`` must pass both files;
+12. the contiguous decode-attention kernel vs its plain version: at
+    RecurrentGemma's decode shape (B 4 and 8, one kv head, G=10, D=256,
+    bf16 cache of 560 slots) in the TPU kernel's form (kv_len 0, 1, 300,
+    560) and in the ring form (filling, full and wrapped rings, windows 7
+    and 2048, softcap 0 and 30), and at the Qwen3 (8 / 16 heads, D=128,
+    bf16) and bench-tiny (2 / 4 heads, D=32, f32) shapes;
+13. the RG-LRU scan kernel vs its plain version, with and without h0, bit
     for bit: (4, 512, 2560), (8, 256, 2560), (1, 2048, 2560), T around a
     multiple of the plan's stage (511, 513) and one step short of and past
     a stage, T = 1, and W = 64, 6 and 36 (a ragged last strip; 6 and 36
     off the 16-byte unit of the tensor copies);
-11. timing of both, inputs rotated past the L2: the decode kernel at B=4
+14. timing of both, inputs rotated past the L2: the decode kernel at B=4
     and 8, kv_len 544 and 2048 over a ring, beside its plain version, its
     byte bound and ``scaled_dot_product_attention`` with a boolean mask
     (the yardstick the port never calls); the scan at (4, 512, 2560),
     (4, 256, 2560), (1, 512, 2560) and (1, 2048, 2560) beside its plain
     version, its byte bound and its plan (no PyTorch call computes this
     recurrence);
-12. serve full-width RecurrentGemma-2B (26 layers, bf16, weights drawn
+15. serve full-width RecurrentGemma-2B (26 layers, bf16, weights drawn
     from a seeded ``torch.Generator``) through ``ServingEngine`` /
     ``BucketRunner``: 8 requests, four prompts of 256 random tokens and
     four of 512, ``max_batch=4`` (two buckets), 32 greedy tokens each;
     checks the completions and the launch counts (decode kernel = 8 x
     decode steps, scan kernel = 18 x prefill calls);
-13. parity on the card: prefill logits with the scan kernel against the
+16. parity on the card: prefill logits with the scan kernel against the
     plain scan, and one decode step with the kernels against the plain
     versions on a clone of the ring cache; then a prefill call of the
     512-token bucket (B=4) is profiled by kernel (the scan must run once
@@ -99,13 +124,17 @@ contiguous kernel's entry carries all four timed shapes with their SDPA
 times and bounds, the Q4_0 entry its M=8 and M=128 times and bounds by
 shape and its device time in a decode step and a prefill chunk, the scan
 entry its four timed shapes with their plans and its device time in the
-profiled prefill call), and as the last line ``{"ok": true, "device":
+profiled prefill call; the paged entries and the Q4_0 entry also their
+launches in phase 10's k=2 run and their device time in a verify step),
+and as the last line ``{"ok": true, "device":
 {...}}``.  Nothing
 here imports JAX or the reference package.
 """
 
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -161,6 +190,12 @@ ROTATE_BYTES = 120e6
 #: cycles the device spins before a timed loop (~0.1 s at 1.98 GHz), so
 #: the host has queued every call before the first one runs
 SPIN_CYCLES = 200_000_000
+
+
+def stamp(t_start: float, what: str) -> None:
+    """Print the seconds since ``t_start`` at the start of a phase."""
+    print(f"[time] {time.perf_counter() - t_start:.1f} s: {what}",
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -491,17 +526,24 @@ def logit_parity(torch, got, want, tol, what):
 
 def kernel_times(torch, run, n):
     """Device milliseconds and launches per run by kernel name, from
-    torch.profiler over ``n`` calls of ``run()`` (synchronised)."""
+    torch.profiler over ``n`` calls of ``run()``, each synchronised.  One
+    call before them is the profiler's warm-up, its events dropped: a
+    trace that opens on a busy device can miss its first launches (once,
+    every kernel's count came out ~1 % short)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        for _ in range(n + 1):
             run()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     by_kernel = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:    # host ops: not device time
+            continue
+        if e.key.startswith("ProfilerStep"):   # the schedule's step marks
             continue
         if e.device_time_total > 0:                 # microseconds
             by_kernel[e.key] = (e.device_time_total / n / 1e3, e.count / n)
@@ -523,12 +565,13 @@ def kernel_share(by_kernel, parts):
     return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
 
-def profile_step(torch, step, first, label, card, batch=8):
+def profile_step(torch, step, first, label, card, batch=8, stats=None,
+                 n_steps=4):
     """Host wall per full-width decode step (``step(pos)`` runs one,
-    synchronised, no profiler), then device time by kernel name from
-    torch.profiler over the same number of further steps.  Returns the
-    device milliseconds per step by kernel name."""
-    n_steps = 4
+    synchronised, no profiler) over ``n_steps`` steps, then device time
+    by kernel name from torch.profiler over as many further steps.  Returns the
+    device milliseconds per step by kernel name (and puts the wall and
+    device-busy milliseconds per step into ``stats``, if given)."""
 
     def steps(start):
         for s in range(n_steps):
@@ -547,10 +590,12 @@ def profile_step(torch, step, first, label, card, batch=8):
 
     by_kernel = kernel_times(torch, next_step, n_steps)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
-    print(f"[profile] {label} decode step (B={batch}): wall {wall_ms:.2f} "
+    print(f"[profile] {label} step (B={batch}): wall {wall_ms:.2f} "
           f"ms, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} of "
           f"wall) — {card}")
     print_top(by_kernel)
+    if stats is not None:
+        stats.update(wall_ms=wall_ms, busy_ms=busy_ms)
     return by_kernel
 
 
@@ -566,22 +611,23 @@ def q4_profile(by_kernel, n_calls, label, card):
     return ms
 
 
-def paged_profile(by_kernel, n_layers, label, card):
-    """The paged kernel's two launches in a profiled decode step: device
-    ms per step of the split and the merge launches, each of which must
-    run once per layer.  Returns the device ms per call, both included."""
+def paged_profile(by_kernel, n_calls, label, card):
+    """The paged kernel's two launches in a profiled step: device ms per
+    step of the split and the merge launches, each of which must run
+    ``n_calls`` times (once per layer in a decode step, S times per layer
+    in a verify step).  Returns the device ms per call, both included."""
     found = {}
     for part in ("paged_split_kernel", "paged_merge_kernel"):
         found[part] = kernel_share(by_kernel, (part,))
-        if found[part][1] != n_layers:
-            fail(f"{label} decode step: {found[part][1]} {part} launches a "
-                 f"step, not {n_layers}")
+        if found[part][1] != n_calls:
+            fail(f"{label} step: {found[part][1]} {part} launches a step, "
+                 f"not {n_calls}")
     (ms_s, n_s), (ms_m, n_m) = found.values()
-    print(f"[profile] paged decode attention in the {label} decode step: "
+    print(f"[profile] paged decode attention in the {label} step: "
           f"split {ms_s * 1e3:.1f} us/step over {n_s:.0f} launches, merge "
           f"{ms_m * 1e3:.1f} us/step over {n_m:.0f} launches, "
-          f"{(ms_s + ms_m) / n_layers * 1e3:.1f} us a call — {card}")
-    return (ms_s + ms_m) / n_layers
+          f"{(ms_s + ms_m) / n_calls * 1e3:.1f} us a call — {card}")
+    return (ms_s + ms_m) / n_calls
 
 
 def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
@@ -667,7 +713,7 @@ def ring_positions(torch, n_written, slots, dev="cuda"):
 
 
 def check_decode_kernel(torch, ref, kern, gen, dev="cuda"):
-    """Phase 9: the contiguous decode kernel against its plain version,
+    """Phase 12: the contiguous decode kernel against its plain version,
     in the TPU form (kv_len, nothing valid at 0: the mean of V in both)
     and in the ring form (filling, full and wrapped rings).  Returns the
     largest |kernel - plain|."""
@@ -718,7 +764,7 @@ def scan_stage_edge(plan, B, W, edge, sms):
 
 
 def check_scan_kernel(torch, ref, kern, plan, sms, gen, dev="cuda"):
-    """Phase 10: the RG-LRU scan kernel against its plain version, bit
+    """Phase 13: the RG-LRU scan kernel against its plain version, bit
     for bit: the prefill buckets' shapes, one prompt at the window length,
     T around a multiple of the stage and one step short of and past the
     stage of ``plan`` on ``sms`` SMs, T = 1, and widths off the 16-byte
@@ -750,7 +796,7 @@ def check_scan_kernel(torch, ref, kern, plan, sms, gen, dev="cuda"):
 
 
 def time_decode_kernel(torch, F, ref, kern, gen, card, dev="cuda"):
-    """Phase 11a: the decode kernel over a ring at RecurrentGemma's shape,
+    """Phase 14a: the decode kernel over a ring at RecurrentGemma's shape,
     K/V rotated past the L2.  Returns {(B, kv_len): (kernel ms, plain ms,
     SDPA ms, bound ms, bound_by)}."""
     H, G, D, out = 1, 10, 256, {}
@@ -803,7 +849,7 @@ SCAN_SHAPES = ((4, 512, 2560), (4, 256, 2560), (1, 512, 2560),
 
 
 def time_scan_kernel(torch, ref, kern, gen, card, dev="cuda"):
-    """Phase 11b: the scan at SCAN_SHAPES with a zero h0, as a prefill
+    """Phase 14b: the scan at SCAN_SHAPES with a zero h0, as a prefill
     runs it; a and u rotated past the L2.  Returns {(B, T, W): (kernel
     ms, plain ms, bound ms, bound_by, plan)}."""
     out = {}
@@ -883,7 +929,7 @@ def counted(calls, name, fn):
 
 def serve_recurrentgemma(torch, np, kernels, card, dev="cuda", cfg=None,
                          lens=(256, 512), max_len=560):
-    """Phase 12: full-width RecurrentGemma-2B through the bucket engine:
+    """Phase 15: full-width RecurrentGemma-2B through the bucket engine:
     a warm-up request, then 8 measured requests (four prompts of each
     length in ``lens``, 32 greedy tokens each, ``max_batch=4``) with
     every kernel's launch count set to 0 just before and read just
@@ -977,7 +1023,7 @@ def prefill_profile(torch, model, params, toks, max_len, card, dev="cuda"):
 
 
 def rg_parity(torch, model, params, prompts, card, dev="cuda"):
-    """Phase 13: from the 512-token bucket's prompts, prefill with the
+    """Phase 16: from the 512-token bucket's prompts, prefill with the
     scan kernel and with the plain scan (fresh ring caches), then one
     decode step with the kernels and with the plain versions on a clone
     of the cache; logits must agree.  Then a prefill call of that bucket
@@ -1004,8 +1050,332 @@ def rg_parity(torch, model, params, prompts, card, dev="cuda"):
                  "RecurrentGemma decode logits, kernels vs plain")
     del clone
     return profile_step(torch, lambda p_: model.decode_step(
-        params, cache, fed, p_), S + 1, "full-width RecurrentGemma", card,
+        params, cache, fed, p_), S + 1, "full-width RecurrentGemma decode",
+        card,
         batch=B), prefill
+
+
+#: speculative decoding's lookahead on the card: k = 2 drafts, so a
+#: verify step feeds S = 3 columns and calls the paged kernel 3 x a layer
+SPEC_K = 2
+
+
+def clone_paged(cache):
+    """A copy of a paged cache (block tables and every layer's buffers)."""
+    return {"block_tables": cache["block_tables"].clone(),
+            "layers": [{"self": {n_: t.clone() for n_, t in
+                                 layer["self"].items()}}
+                       for layer in cache["layers"]]}
+
+
+def verify_phase(torch, np, gen, model, params, prompts, kv_dtype, tol,
+                 label, card, ref_qmm=None, dev="cuda"):
+    """Phase 9: from one prefilled state, SPEC_K + 1 sequential
+    decode steps give each lane its greedy continuation; one verify step
+    fed those tokens as drafts, on a copy of the state, must give column
+    j's logits within ``tol`` of decode step j's (and accept every draft
+    whose top-2 margin there exceeds ``tol``), and so must the verify
+    step's plain version (plain paged attention; ``ref_qmm`` for the
+    projections) against the kernels.  Then one decode step and one
+    verify step are profiled on the same state.  Returns [decode,
+    verify]: each a pair (device ms per step by kernel name, {"wall_ms",
+    "busy_ms"} per step)."""
+    S = SPEC_K + 1
+    cache, clone, fed, pos, ps = parity_state(torch, np, gen, model, params,
+                                              prompts, kv_dtype)
+    plain_clone = clone_paged(clone)
+    toks, dec = [fed], []
+    for j in range(S):
+        logits, _ = model.decode_step(params, cache, toks[-1], pos + j,
+                                      page_size=ps)
+        dec.append(logits)
+        toks.append(logits[:, 0].float().argmax(-1, keepdim=True))
+    feed = torch.cat(toks[:S], dim=1)          # fed token + SPEC_K drafts
+    n_fed = torch.full_like(pos, S)
+    ver, _ = model.verify_step(params, clone, feed, pos, n_fed, page_size=ps)
+    for j in range(S):
+        logit_parity(torch, ver[:, j:j + 1], dec[j], tol,
+                     f"{label} verify column {j} vs decode step {j}")
+    accepted = 0
+    for j in range(1, S):     # draft j is checked by column j - 1
+        acc = ver[:, j - 1].float().argmax(-1) == toks[j][:, 0]
+        accepted += int(acc.sum())
+    print(f"[verify] {label}: {accepted} of {SPEC_K * len(prompts)} greedy "
+          f"drafts accepted by one verify step (S={S})")
+    kernel_qmm = model.qmm
+    if ref_qmm is not None:
+        model.qmm = ref_qmm
+    want, _ = model.verify_step(params, plain_clone, feed, pos, n_fed,
+                                page_size=ps, impl="ref")
+    model.qmm = kernel_qmm
+    for j in range(S):
+        logit_parity(torch, ver[:, j:j + 1], want[:, j:j + 1], tol,
+                     f"{label} verify column {j}, kernels vs plain")
+    del clone, plain_clone, ver, want, dec
+    start = pos + S
+
+    def decode(p_):
+        model.decode_step(params, cache, fed, p_, page_size=ps)
+
+    def verify(p_):
+        model.verify_step(params, cache, feed, p_, n_fed, page_size=ps)
+
+    out = []
+    for what, step, first in (("decode", decode, start),
+                              (f"verify (S={S})", verify, start + 8)):
+        stats = {}
+        out.append((profile_step(torch, step, first, f"{label} {what}", card,
+                                 stats=stats, n_steps=2), stats))
+    return out
+
+
+def greedy_margin(torch, model, params, prompt, toks, i, kv_dtype,
+                  dev="cuda"):
+    """The top-2 logit margin of token ``i`` of the greedy continuation
+    ``toks`` of ``prompt``, recomputed on one lane: one-shot prefill,
+    then ``i`` decode steps fed ``toks``."""
+    ps, P = 16, len(prompt)
+    cache = model.init_cache(1, P + i + 1, page_size=ps, kv_dtype=kv_dtype,
+                             device=dev)
+    mp = cache["block_tables"].shape[1]
+    cache["block_tables"].copy_(torch.arange(1, mp + 1, dtype=torch.int32,
+                                             device=dev)[None])
+    t = torch.zeros((1, 1 << max(3, (P - 1).bit_length())), dtype=torch.long,
+                    device=dev)
+    t[0, :P] = torch.tensor(prompt, device=dev)
+    logits, _ = model.prefill_paged(params, {"tokens": t}, cache, 0, P,
+                                    page_size=ps)
+    for j in range(i):
+        logits, _ = model.decode_step(
+            params, cache, torch.tensor([[toks[j]]], device=dev),
+            torch.tensor([P + j], device=dev), page_size=ps)
+    top2 = logits[0, -1].float().topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def spec_prompts(np, V, seed=2):
+    """4 prompts of 128-512 tokens, each a random segment repeated (so
+    prompt lookup drafts), the middle two sharing a 256-token prefix."""
+    rng = np.random.default_rng(seed)
+
+    def repeated(n):
+        seg = rng.integers(0, V, int(rng.integers(8, 48))).tolist()
+        return (seg * (n // len(seg) + 1))[:n]
+
+    prompts = [repeated(n) for n in (128, 256 + 64, 256 + 160, 512)]
+    prefix = repeated(256)
+    prompts[1] = prefix + prompts[1][256:]
+    prompts[2] = prefix + prompts[2][256:]
+    return prompts
+
+
+def serve_async(torch, eng, prompts, kernels, V):
+    """One run of ``prompts`` through ``AsyncEngine`` ``eng``: a warm-up
+    request over the shared prefix, then every kernel's launch count set
+    to 0, all requests submitted at once, the first streamed and the
+    rest waited for.  Returns (completions, streamed tokens, launches,
+    runner calls by kind, q4 forward calls by phase or None, spec
+    counters, (tokens emitted, lanes) of each verify step, peak memory,
+    TTFTs, report, free pages before and after)."""
+    from repro_torch.serving import Request, SamplingParams, \
+        throughput_report
+    core, reg = eng.core, eng.registry
+    h = eng.submit(Request(uid=0, prompt=prompts[1][:256] + [1, 2, 3],
+                           sampling=SamplingParams(max_new_tokens=2)))
+    eng.result(h, timeout=600)
+    while core.has_work():
+        time.sleep(0.01)
+    hist = {kind: reg.get(f"runner.{kind}.dispatch_ms")
+            for kind in ("prefill", "decode", "verify")}
+    disp = reg.get("runner.quant.q4_dispatch")
+    phases = ("prefill", "decode", "verify")
+
+    def snap():
+        calls = {k_: hist[k_].value(shards="1")[1] for k_ in hist}
+        fwd = ({p_: disp.value(phase=p_) for p_ in phases} if disp
+               else None)
+        spec = {n_: (reg.get(n_).value() if reg.get(n_) else 0.0)
+                for n_ in ("spec.drafted", "spec.accepted",
+                           "spec.rollbacks", "spec.pages_returned",
+                           "spec.auto_disabled")}
+        phase_s = {p_: reg.get(f"serving.phase.{p_}_s").value()
+                   for p_ in ("prefill", "decode")}
+        return calls, fwd, spec, phase_s
+
+    before = snap()
+    free0 = core.pool.n_free()
+    emitted = []
+    verify_step = core._decode_verify
+
+    def counted_verify(plan, *args):
+        n = verify_step(plan, *args)
+        emitted.append((n, len(plan.decodes)))
+        return n
+
+    core._decode_verify = counted_verify
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0                     # count the main path only
+    reqs = [Request(uid=i, prompt=p,
+                    sampling=SamplingParams(max_new_tokens=32))
+            for i, p in enumerate(prompts)]
+    handles = [eng.submit(r) for r in reqs]
+    streamed = list(eng.stream(handles[0], timeout=600))
+    comps = [eng.result(h_, timeout=600) for h_ in handles]
+    while core.has_work():
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    core._decode_verify = verify_step
+    after = snap()
+    calls = {k_: int(after[0][k_] - before[0][k_]) for k_ in hist}
+    fwd = ({p_: int(after[1][p_] - before[1][p_]) for p_ in phases}
+           if disp else None)
+    spec = {n_: int(after[2][n_] - before[2][n_]) for n_ in after[2]}
+    phase_s = {p_: after[3][p_] - before[3][p_] for p_ in after[3]}
+    for c in comps:
+        if len(c.tokens) != 32 or not all(0 <= t < V for t in c.tokens):
+            raise RuntimeError(f"request {c.uid}: {len(c.tokens)} tokens, "
+                               f"in vocab: {all(0 <= t < V for t in c.tokens)}")
+    if streamed != comps[0].tokens:
+        raise RuntimeError("the streamed tokens differ from the result's")
+    rep = throughput_report(comps, prefill_s=phase_s["prefill"],
+                            decode_s=phase_s["decode"])
+    ttft = sorted(c.t_first - c.t0 for c in comps)
+    return dict(comps=comps, launches=launches, calls=calls, fwd=fwd,
+                spec=spec, emitted=emitted, peak=peak, ttft=ttft, rep=rep,
+                free=(free0, core.pool.n_free()))
+
+
+def async_spec_phase(torch, model, draw_params, cfg, kernels, prompts,
+                     quant, tol, label, card, dev="cuda"):
+    """Phase 10: full-width Qwen3-1.7B through ``AsyncEngine``
+    with ``spec_decode=SPEC_K`` and then 0 on the same prompts
+    (``max_running=8``, 16-token pages, 128-token prefill chunks, 32
+    greedy tokens each; :func:`spec_prompts`), each engine built from
+    the weights ``draw_params()`` returns.  Checks every completion, ``spec.drafted > 0``,
+    the paged launches (n_layers x (plain decode steps + S x verify
+    steps)) and under q4 the Q4_0 launches (7 x n_layers x forward calls,
+    verify included), the free pages back at their start, and the k=2
+    tokens against k=0's under the margin rule: where they first differ,
+    k=0's top-2 logit margin there must be under ``tol``.  Returns the
+    k=2 run's launches by kernel name and both runs' numbers."""
+    from repro_torch.serving import AsyncEngine
+    S, L, V = SPEC_K + 1, cfg.n_layers, cfg.vocab_size
+    runs = {}
+    for k in (SPEC_K, 0):
+        eng = AsyncEngine(model, draw_params(), max_len=1024,
+                          max_running=8, page_size=16, prefill_chunk=128,
+                          spec_decode=k, quant=quant, seed=0, device=dev)
+        try:
+            run = serve_async(torch, eng, prompts, kernels, V)
+        finally:
+            eng.shutdown()
+        if k == 0:                  # for the margins of the k=0 tokens
+            run["params"] = eng.core.runner.params
+        runs[k] = run
+        del eng
+        gc.collect()                # the stepper thread's cycle holds it
+        torch.cuda.empty_cache()
+        calls, launches = run["calls"], run["launches"]
+        paged = launches["paged_decode_attention"]
+        want = L * (calls["decode"] + S * calls["verify"])
+        if paged != want or calls["decode"] + calls["verify"] <= 0:
+            fail(f"{label} k={k}: paged launches {paged} != {L} x "
+                 f"({calls['decode']} decode steps + {S} x "
+                 f"{calls['verify']} verify steps)")
+        if run["fwd"] is not None:
+            fwd = sum(run["fwd"].values())
+            if launches["q4_gemm"] != 7 * L * fwd:
+                fail(f"{label} k={k}: q4_gemm launches "
+                     f"{launches['q4_gemm']} != 7 x {L} x {fwd} forward "
+                     f"calls {run['fwd']}")
+            if run["fwd"]["verify"] != calls["verify"]:
+                fail(f"{label} k={k}: q4_dispatch verify "
+                     f"{run['fwd']['verify']} != {calls['verify']} verify "
+                     f"steps")
+        elif launches["q4_gemm"]:
+            fail(f"{label}: bf16 serving launched q4_gemm")
+        if run["free"][0] != run["free"][1]:
+            fail(f"{label} k={k}: {run['free'][0]} free pages before the "
+                 f"run, {run['free'][1]} after")
+        if launches["decode_attention"] or launches["rglru_scan"]:
+            fail(f"{label}: paged serving launched a bucket-path kernel")
+        rep = run["rep"]
+        ttft_p50 = run["ttft"][len(prompts) // 2]
+        print(f"[async] {label} k={k}: {len(prompts)} requests x 32 "
+              f"tokens, one streamed; {calls['prefill']} prefill chunks, "
+              f"{calls['decode']} decode steps, {calls['verify']} verify "
+              f"steps; launches {launches}"
+              + (f"; q4 forward calls {run['fwd']}" if run["fwd"] else ""))
+        print(f"[async] {label} k={k}: decode {rep['decode_tok_per_s']:.1f} "
+              f"tok/s, prefill {rep['prefill_tok_per_s']:.1f} tok/s, wall "
+              f"{rep['wall_s']:.3f} s, TTFT p50 {ttft_p50 * 1e3:.1f} ms max "
+              f"{run['ttft'][-1] * 1e3:.1f}"
+              f" ms, peak memory {run['peak'] / 2**30:.2f} GiB; spec "
+              f"{run['spec']}; free pages {run['free'][0]} -> "
+              f"{run['free'][1]} — {card}", flush=True)
+    if runs[SPEC_K]["spec"]["spec.drafted"] <= 0:
+        fail(f"{label}: prompt lookup drafted nothing")
+    agree = total = 0
+    for c2, c0, prompt in zip(runs[SPEC_K]["comps"], runs[0]["comps"],
+                              prompts):
+        total += len(c0.tokens)
+        diff = [i for i, (a, b) in enumerate(zip(c2.tokens, c0.tokens))
+                if a != b]
+        if not diff:
+            agree += len(c0.tokens)
+            continue
+        i = diff[0]
+        agree += i
+        margin = greedy_margin(torch, model, runs[0]["params"], prompt,
+                               c0.tokens, i, quant.kv_dtype if quant
+                               else "fp32", dev)
+        print(f"[async] {label}: request {c0.uid} k={SPEC_K} and k=0 first "
+              f"differ at token {i}; k=0 top-2 margin there {margin:.4f} "
+              f"(tol {tol})")
+        if not margin < tol:
+            fail(f"{label}: request {c0.uid}: k={SPEC_K} and k=0 differ at "
+                 f"token {i} with a clear margin {margin:.4f}")
+    print(f"[async] {label}: k={SPEC_K} tokens agree with k=0 on "
+          f"{agree}/{total} (up to each request's first difference)")
+    del runs[0]["params"]
+    return runs
+
+
+def cli_phase(card):
+    """Phase 11: ``python -m repro_torch.launch.serve --engine async
+    --spec-decode 2 --metrics-json M --trace T`` (reduced qwen3-1.7b, on
+    the card) must exit 0, and both files must pass
+    ``python -m repro_torch.obs.validate``."""
+    out_dir = ROOT / "build" / "chip_smoke_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    m, t = out_dir / "metrics.json", out_dir / "trace.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-1.7b", "--engine", "async", "--spec-decode", str(SPEC_K),
+         "--max-new", "8", "--metrics-json", str(m), "--trace", str(t)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"serve CLI exited {run.returncode}: {run.stderr[-2000:]}")
+    lines = [ln for ln in run.stdout.splitlines()
+             if ln.startswith(("arch=", "[", "throughput", "ttft"))]
+    for ln in lines:
+        print(f"[cli]   {ln}")
+    check_run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.validate", "--metrics",
+         str(m), "--trace", str(t), "--require-counter", "spec.drafted"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    if check_run.returncode != 0:
+        fail(f"obs.validate: {check_run.stdout[-1000:]} "
+             f"{check_run.stderr[-1000:]}")
+    print(f"[cli] --engine async --spec-decode {SPEC_K} on the card: exit "
+          f"0 in {wall:.1f} s; metrics and trace validate — {card}")
 
 
 def main() -> int:
@@ -1074,6 +1444,7 @@ def main() -> int:
     max_err = 0.0
 
     # -- 3a. paged kernel vs plain version -------------------------------
+    stamp(t_start, "phase 3, kernels vs plain versions")
     main_lens = [0, 1, 16, 17, 300, 1023, 1500, 2048]
     cases = [
         ("serve", dict(B=8, Hkv=8, G=2, D=128, ps=16, max_pages=128,
@@ -1156,6 +1527,7 @@ def main() -> int:
     check_repeatable(torch, gen, kernels, quantize_rows, q4_0)
 
     # -- 4. kernel timing ------------------------------------------------
+    stamp(t_start, "phase 4, kernel timing")
     import torch.nn.functional as F
     for L in (1024, 4096):
         B, Hkv, G, D, ps = 8, 8, 2, 128, 16
@@ -1230,6 +1602,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. serve full-width Qwen3-1.7B in bf16 --------------------------
+    stamp(t_start, "phase 5, continuous serving in bf16")
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.weights import tree_leaves_with_path
@@ -1280,9 +1653,10 @@ def main() -> int:
     run_params = eng.runner.params
     paged_dev = paged_profile(profile_step(torch, lambda p_: model.decode_step(
         run_params, cache, fed_t, p_, page_size=ps), pos + 1,
-        "full-width bf16", card), cfg.n_layers, "bf16", card)
+        "full-width bf16 decode", card), cfg.n_layers, "bf16 decode", card)
 
     # -- 7. serve under q4 weights + int8 pages ---------------------------
+    stamp(t_start, "phase 7, continuous serving under q4 + int8")
     del eng, cache, clone, got, want, run_params
     torch.cuda.empty_cache()
     qp = QuantPolicy(weights="q4", kv_dtype="int8")
@@ -1338,8 +1712,9 @@ def main() -> int:
     by_kernel8 = profile_step(
         torch, lambda p_: model.decode_step(qparams, cache, fed_t, p_,
                                             page_size=ps), pos + 1,
-        "full-width q4 + int8", card)
-    paged_dev8 = paged_profile(by_kernel8, cfg.n_layers, "q4 + int8", card)
+        "full-width q4 + int8 decode", card)
+    paged_dev8 = paged_profile(by_kernel8, cfg.n_layers, "q4 + int8 decode",
+                               card)
     q4_step_ms = q4_profile(by_kernel8, 7 * cfg.n_layers,
                             "q4 + int8 decode step (M=8)", card)
     # one full-width 128-token prefill chunk under q4 + int8: device time
@@ -1357,9 +1732,79 @@ def main() -> int:
     q4_chunk_ms = q4_profile(by_chunk, 7 * cfg.n_layers,
                              "q4 + int8 prefill chunk (M=128)", card)
 
-    # -- 9.-11. the bucket path's kernels vs plain versions, timed ------
+    # -- 9.-11. speculative verify, async serving, the CLI --------------
+    stamp(t_start, "phase 9, verify parity")
     del eng, cache, clone, got, want, qparams, model
     torch.cuda.empty_cache()
+    from repro_torch.quant import quantize_serving_params
+    L, S = cfg.n_layers, SPEC_K + 1
+    model = build_model(cfg)                  # no qmm hook: bf16 serving
+    wgen.manual_seed(0)
+    params = model.init(wgen)                 # phase 5's weights again
+    model_q = build_model(cfg)
+    model_q.qmm = make_qmm(qp.impl)
+    qparams = quantize_serving_params(params, min_size=qp.min_size)
+    spec = {}
+    for label, m_, p_, kv, tol, ref_qmm in (
+            ("bf16", model, params, "fp32", LOGIT_TOL, None),
+            ("q4 + int8", model_q, qparams, "int8", LOGIT_TOL_Q4,
+             make_qmm("ref"))):
+        (dec, dec_st), (ver, ver_st) = verify_phase(
+            torch, np, gen, m_, p_, prompts, kv, tol, label, card,
+            ref_qmm=ref_qmm)
+        spec[label] = {
+            "decode": dec_st, "verify": ver_st,
+            "paged_decode": paged_profile(dec, L, f"{label} decode", card),
+            "paged_verify": paged_profile(ver, S * L,
+                                          f"{label} verify (S={S})", card)}
+        if ref_qmm is not None:
+            spec[label]["q4_verify"] = q4_profile(
+                ver, 7 * L, f"{label} verify step (M={8 * S})", card)
+        print(f"[spec] {label}: one verify step (S={S}) takes "
+              f"{ver_st['busy_ms']:.2f} ms of device time and "
+              f"{ver_st['wall_ms']:.2f} ms of host wall, one decode step "
+              f"{dec_st['busy_ms']:.2f} / {dec_st['wall_ms']:.2f} ms on the "
+              f"same state — {card}")
+    del qparams, p_                 # the loop variable holds the q4 tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    sprompts = spec_prompts(np, V)
+    stamp(t_start, "phase 10, async serving with spec_decode")
+
+    def draw_again():               # phase 5's weights, for a q4 engine
+        wgen.manual_seed(0)
+        return model_q.init(wgen)
+
+    for label, m_, draw, quant, tol in (
+            ("bf16", model, lambda: params, None, LOGIT_TOL),
+            ("q4 + int8", model_q, draw_again, qp, LOGIT_TOL_Q4)):
+        if quant is not None:
+            # each q4 engine quantizes a fresh draw and keeps only its
+            # Q4_0 tree, so its peak memory is the quantized path's
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs = async_spec_phase(torch, m_, draw, cfg, kernels, sprompts,
+                                quant, tol, label, card)
+        spec[label]["async"] = runs
+        r2, r0 = runs[SPEC_K], runs[0]
+        n_tok = sum(n for n, _ in r2["emitted"])
+        n_lanes = sum(b for _, b in r2["emitted"])
+        steps = len(r2["emitted"])
+        print(f"[spec] {label}: k={SPEC_K} decode "
+              f"{r2['rep']['decode_tok_per_s']:.1f} tok/s against k=0 "
+              f"{r0['rep']['decode_tok_per_s']:.1f}; {n_tok / steps:.2f} "
+              f"tokens per verify step ({n_tok / n_lanes:.2f} a lane) over "
+              f"{steps} verify steps; accepted "
+              f"{r2['spec']['spec.accepted']} of "
+              f"{r2['spec']['spec.drafted']} drafts — {card}")
+    stamp(t_start, "phase 11, the async CLI")
+    cli_phase(card)
+    del model, model_q
+    torch.cuda.empty_cache()
+
+    # -- 12.-14. the bucket path's kernels vs plain versions, timed ------
+    stamp(t_start, "phase 12, the bucket path's kernels")
     err_da = check_decode_kernel(torch, ref, da.decode_attention, gen)
     err_rs = check_scan_kernel(torch, ref, rs.rglru_scan, rs.scan_plan,
                                build.sm_count(0), gen)
@@ -1369,7 +1814,8 @@ def main() -> int:
     t_rs, t_rs_p, b_rs, b_rs_by, rs_plan = rs_times[SCAN_SHAPES[0]]
     torch.cuda.empty_cache()
 
-    # -- 12. serve full-width RecurrentGemma-2B (bucket engine) ----------
+    # -- 15. serve full-width RecurrentGemma-2B (bucket engine) ----------
+    stamp(t_start, "phase 15, RecurrentGemma-2B bucket serving")
     model, eng, prompts, counts_rg, calls = serve_recurrentgemma(
         torch, np, kernels, card)
     n_attn = model.kinds.count("attn")
@@ -1389,7 +1835,7 @@ def main() -> int:
           f"{calls['decode']} decode steps; rglru_scan {launches_rs} = "
           f"{n_rglru} x {calls['prefill']} prefill calls")
 
-    # -- 13. parity on the card, profile ---------------------------------
+    # -- 16. parity on the card, profile ---------------------------------
     by_kernel, (prefill_ms, prefill_scan_ms) = rg_parity(
         torch, model, eng.runner.params, prompts, card)
     # the contiguous kernel is one launch (its splits merge in a cluster)
@@ -1426,6 +1872,9 @@ def main() -> int:
         "library_ms": t_l,
         "splits": n_split,
         "decode_step_device_ms_per_call": paged_dev,
+        "launches_async_spec": spec["bf16"]["async"][SPEC_K]["launches"][
+            "paged_decode_attention"],
+        "verify_step_device_ms_per_call": spec["bf16"]["paged_verify"],
     }, {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -1441,6 +1890,9 @@ def main() -> int:
         "bf16_pages_same_state_ms": t_bf16,
         "splits": n_split8,
         "decode_step_device_ms_per_call": paged_dev8,
+        "launches_async_spec": spec["q4 + int8"]["async"][SPEC_K][
+            "launches"]["paged_decode_attention"],
+        "verify_step_device_ms_per_call": spec["q4 + int8"]["paged_verify"],
     }, {
         "name": "q4_gemm",
         "route": "cuda",
@@ -1466,6 +1918,9 @@ def main() -> int:
                       "bound_by": t[4]}
                      for (K, N, M), t in sorted(q4_times.items())],
         "prefill_chunk_device_ms": q4_chunk_ms,
+        "launches_async_spec": spec["q4 + int8"]["async"][SPEC_K][
+            "launches"]["q4_gemm"],
+        "verify_step_device_ms": spec["q4 + int8"]["q4_verify"],
     }, {
         "name": "decode_attention",
         "route": "cuda",

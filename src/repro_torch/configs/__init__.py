@@ -1,9 +1,11 @@
-"""Architectures the port serves (``--arch <id>``).
+"""Architectures the port serves (``--arch <id>``), and input shapes.
 
-Uniform self-attention stacks serve through both engines; the hybrid
-RG-LRU + local-attention stack (RecurrentGemma) through the bucket
-engine.  The reference registry (``repro.configs``) lists the rest.
-``BENCH_TINY`` is the benchmark suite's tiny model (``--arch tiny``).
+Uniform self-attention stacks (Gemma3, Granite, Qwen2, Qwen3) serve
+through both engines; the hybrid RG-LRU + local-attention stack
+(RecurrentGemma) through the bucket engine.  The reference registry
+(``repro.configs``) lists the rest.  ``BENCH_TINY`` is the benchmark
+suite's tiny model (``--arch tiny``); ``SHAPES`` the four assigned input
+shapes, as in the reference.
 """
 
 from __future__ import annotations
@@ -13,12 +15,17 @@ from typing import Dict, List
 from ..models.config import ModelConfig
 from .bench_tiny import CONFIG as BENCH_TINY
 from .gemma3_1b import CONFIG as _gemma3_1b
+from .granite_3_8b import CONFIG as _granite_3_8b
+from .qwen2_72b import CONFIG as _qwen2_72b
 from .qwen3_1p7b import CONFIG as _qwen3_1p7b
 from .recurrentgemma_2b import CONFIG as _recurrentgemma_2b
+from .shapes import SHAPES, InputShape
 
 ARCHS: Dict[str, ModelConfig] = {
     "gemma3-1b": _gemma3_1b,
+    "granite-3-8b": _granite_3_8b,
     "qwen3-1.7b": _qwen3_1p7b,
+    "qwen2-72b": _qwen2_72b,
     "recurrentgemma-2b": _recurrentgemma_2b,
 }
 
@@ -34,4 +41,5 @@ def list_archs() -> List[str]:
     return sorted(ARCHS)
 
 
-__all__ = ["ARCHS", "BENCH_TINY", "get_config", "list_archs"]
+__all__ = ["ARCHS", "BENCH_TINY", "SHAPES", "InputShape", "get_config",
+           "list_archs"]

@@ -1,31 +1,47 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-The port's counterpart of ``repro.launch.serve --engine bucket|continuous``:
-brings up a serving engine on a REDUCED variant of the architecture
-(float32, as the reference serves reduced configs), with random weights
-drawn from a fixed seed, serves a batch of byte-level prompts and
-prints the completions and the throughput report.
+The port's counterpart of ``repro.launch.serve``: brings up a serving
+engine on a REDUCED variant of the architecture (float32, as the
+reference serves reduced configs), serves a batch of byte-level prompts
+and prints the completions and the throughput report.  The weights are
+drawn from a fixed seed, or loaded with ``--params PATH`` from an
+``.npz`` the weight bridge wrote (``repro_torch.models.weights.
+save_params_npz``): that is how the port serves the very weights the
+reference draws from ``PRNGKey(0)``, since torch cannot draw JAX's.
 
 ``--engine bucket`` (the default, as in the reference) is the
 length-bucket baseline over the ring cache; it serves every ported
 arch, the hybrid RG-LRU stack of ``recurrentgemma-2b`` included (the
 contiguous decode and RG-LRU scan kernels on the card).
 ``--engine continuous`` is the paged continuous-batching engine, for
-uniform self-attention stacks.
+uniform self-attention stacks; ``--engine async`` serves the same stack
+through the live ``AsyncEngine`` (submit/stream on a background stepper
+thread) — add ``--interactive`` for a stdin demo that streams each
+prompt's tokens as they are sampled.
+
+The paged engines take ``--spec-decode K`` (draft up to K tokens per
+step by prompt lookup and verify them in one batched forward; greedy
+output stays that of K=0), ``--quant q4`` (Q4_0 attention/MLP
+projections, the hand-written Q4_0 GEMM on the card) and ``--kv-dtype
+int8`` (int8 KV pages with per-row scales).  Observability:
+``--metrics-json PATH`` writes the metrics registry snapshot on exit,
+``--trace PATH`` the per-request trace spans as JSONL (both checked by
+``python -m repro_torch.obs.validate``), ``--stats-every SECS`` prints
+a metrics line while the async engine serves.  The bucket engine
+refuses these flags, as the reference's does.
 
 It runs on the GPU (``--device cuda``, the default) and raises when no
 GPU is present; ``--device cpu`` runs it on the CPU.  ``--arch tiny`` is
 the benchmark suite's bench-tiny model.  Warm-up training is not ported
-yet, so ``--warmup-steps`` must stay 0.
-
-``--quant q4`` serves Q4_0 attention/MLP projections (the hand-written
-Q4_0 GEMM on the card) and ``--kv-dtype int8`` int8 KV pages with
-per-row scales (the int8 variant of the paged decode kernel); both go
-through the continuous engine.
+yet, so ``--warmup-steps`` must stay 0; the HTTP front end
+(``--http``, ``--replicas``) and tensor-parallel serving
+(``--tp-shards``) are not ported either.
 
 Examples:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --engine async \\
+        --spec-decode 2 --metrics-json m.json --trace t.jsonl
     python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous \\
         --quant q4 --kv-dtype int8
     python -m repro_torch.launch.serve --arch gemma3-1b --engine continuous \\
@@ -35,6 +51,38 @@ Examples:
 import argparse
 import dataclasses
 import sys
+
+
+def stream_interactive(eng, handle, write, *, decode=None,
+                       timeout: float = 300.0) -> str:
+    """Stream one interactive request through ``write``; returns
+    ``"finished"`` / ``"failed"`` / ``"cancelled"``.
+
+    A handle that lands FAILED raises ``AsyncEngineError`` out of
+    ``stream()`` with the real error chained as ``__cause__``: the cause
+    is printed and the session keeps going.  A stream that times out
+    cancels its request.
+    """
+    from ..serving.async_engine import AsyncEngineError, RequestState
+    decode = decode if decode is not None else str
+    try:
+        for t in eng.stream(handle, timeout=timeout):
+            write(decode(t))
+    except AsyncEngineError as e:
+        cause = e.__cause__
+        write(f"\n[request failed: {e}"
+              + (f" — caused by {type(cause).__name__}: {cause}"
+                 if cause is not None else "") + "]\n")
+        return "failed"
+    except TimeoutError as e:
+        eng.cancel(handle)
+        write(f"\n[request timed out: {e}]\n")
+        return "failed"
+    if handle.state is RequestState.CANCELLED:
+        write("\n[request cancelled]\n")
+        return "cancelled"
+    write("\n")
+    return "finished"
 
 
 def main(argv=None) -> int:
@@ -48,54 +96,90 @@ def main(argv=None) -> int:
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--max-batch", type=int, default=4,
                     help="bucket engine: requests per length bucket")
-    ap.add_argument("--engine", choices=("bucket", "continuous"),
+    ap.add_argument("--engine", choices=("bucket", "continuous", "async"),
                     default="bucket",
                     help="serving engine: the length-bucket baseline over "
-                         "the ring cache, or the paged continuous-batching "
-                         "engine")
+                         "the ring cache, the paged continuous-batching "
+                         "engine, or the same behind the live async "
+                         "front end")
+    ap.add_argument("--interactive", action="store_true",
+                    help="async engine: read prompts from stdin and "
+                         "stream tokens as they are sampled")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; no GPU "
                          "raises instead of falling back to the CPU)")
+    ap.add_argument("--params", metavar="PATH", default=None,
+                    help="load the weights from this .npz (written by "
+                         "repro_torch.models.weights.save_params_npz, e.g. "
+                         "from the reference's Model.init) instead of "
+                         "drawing them from seed 0")
     ap.add_argument("--max-running", type=int, default=4,
-                    help="continuous engine: running-batch slots")
+                    help="paged engines: running-batch slots")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="continuous engine: KV page token slots")
+                    help="paged engines: KV page token slots")
     ap.add_argument("--n-pages", type=int, default=None,
-                    help="continuous engine: KV pool pages (default: "
+                    help="paged engines: KV pool pages (default: "
                          "no-preemption sizing)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="continuous engine: prefill at most this many "
+                    help="paged engines: prefill at most this many "
                          "prompt tokens per step (default: one-shot)")
     ap.add_argument("--no-prefix-cache", action="store_true",
-                    help="continuous engine: disable prompt-prefix "
+                    help="paged engines: disable prompt-prefix "
                          "page sharing")
     ap.add_argument("--quant", choices=("none", "q4"), default="none",
-                    help="continuous engine: weight format — 'q4' packs "
+                    help="paged engines: weight format — 'q4' packs "
                          "attention/MLP projections to Q4_0 at load")
     ap.add_argument("--kv-dtype", choices=("fp32", "int8"),
                     default="fp32",
-                    help="continuous engine: KV page format — 'int8' "
+                    help="paged engines: KV page format — 'int8' "
                          "stores quantized pages with per-row scales "
                          "('fp32' keeps the model's dtype)")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="paged engines: self-speculative decoding — "
+                         "draft up to K tokens per step by prompt lookup "
+                         "and verify them in one batched forward")
     ap.add_argument("--warmup-steps", type=int, default=0,
                     help="LM warm-up training steps (not ported yet: "
                          "only 0 is accepted)")
+    ap.add_argument("--metrics-json", metavar="PATH", default=None,
+                    help="paged engines: write the metrics registry "
+                         "snapshot (JSON) on exit")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="paged engines: record per-request trace "
+                         "spans and write them as JSONL on exit")
+    ap.add_argument("--stats-every", type=float, default=0.0,
+                    metavar="SECS",
+                    help="async engine: print a one-line metrics "
+                         "summary every SECS seconds while serving")
     args = ap.parse_args(argv)
+    if args.engine == "bucket" and (args.metrics_json or args.trace
+                                    or args.stats_every):
+        ap.error("--metrics-json/--trace/--stats-every report the paged "
+                 "serving stack; use --engine continuous or async")
     if args.engine == "bucket" and (args.quant != "none"
                                     or args.kv_dtype != "fp32"):
-        ap.error("--quant/--kv-dtype serve through the paged engine; "
-                 "use --engine continuous")
+        ap.error("--quant/--kv-dtype serve through the paged engines; "
+                 "use --engine continuous or async")
+    if args.engine == "bucket" and args.spec_decode:
+        ap.error("--spec-decode serves through the paged engines; "
+                 "use --engine continuous or async")
+    if args.spec_decode < 0:
+        ap.error("--spec-decode must be >= 0")
     if args.warmup_steps:
         ap.error("--warmup-steps: training is not ported yet; use 0")
+
+    import time
 
     import torch
 
     from ..configs import BENCH_TINY, get_config, list_archs
     from ..data.tokenizer import ByteTokenizer
     from ..models import build_model, reduced_config
+    from ..models.weights import (load_params_npz,
+                                  tree_leaves_with_path)
     from ..quant import QuantPolicy
-    from ..serving import (ContinuousServingEngine, Request, ServingEngine,
-                           throughput_report)
+    from ..serving import (AsyncEngine, ContinuousServingEngine, Request,
+                           ServingEngine, throughput_report)
     from ..serving.runner import resolve_device
     from ..serving.sampler import SamplingParams
 
@@ -112,11 +196,20 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = model.init(gen)
+    if args.params:
+        want = {p: tuple(t.shape) for p, t in tree_leaves_with_path(params)}
+        params = load_params_npz(args.params, device)
+        got = {p: tuple(t.shape) for p, t in tree_leaves_with_path(params)}
+        if got != want:
+            bad = sorted(set(got.items()) ^ set(want.items()), key=str)[:3]
+            ap.error(f"--params {args.params} does not fit arch {cfg.name} "
+                     f"(leaves that differ, as (path, shape): {bad})")
     tok = ByteTokenizer()
     print(f"arch={cfg.name} (reduced, {cfg.param_count() / 1e6:.1f}M) "
           f"on {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + (f", weights from {args.params}" if args.params else ""))
 
     prompts = args.prompt or ["the scheduler binds", "a numa node",
                               "the kv cache streams", "one thread gathers"]
@@ -125,17 +218,77 @@ def main(argv=None) -> int:
     reqs = [Request(uid=i, prompt=tok.encode(p), sampling=sp)
             for i, p in enumerate(prompts)]
     max_len = max(len(r.prompt) for r in reqs) + args.max_new + 8
+    tracer = None
+    if args.trace:
+        from ..obs import RequestTracer
+        tracer = RequestTracer()
+    #: metrics the periodic --stats-every line summarises
+    stat_names = ("serving.steps", "scheduler.running",
+                  "scheduler.queue_depth", "scheduler.preemptions",
+                  "serving.tokens.decode", "kv_pool.pages_free")
     quant = None
     if args.quant != "none" or args.kv_dtype != "fp32":
         quant = QuantPolicy(weights=args.quant, kv_dtype=args.kv_dtype)
         print(f"quant: weights={quant.weights} kv_dtype={quant.kv_dtype}")
-    if args.engine == "continuous":
-        eng = ContinuousServingEngine(
-            model, params, max_len=max_len, max_running=args.max_running,
-            page_size=args.page_size, n_pages=args.n_pages,
-            prefill_chunk=args.prefill_chunk,
-            prefix_cache=not args.no_prefix_cache, quant=quant,
-            device=device)
+    paged_kw = dict(max_running=args.max_running, page_size=args.page_size,
+                    n_pages=args.n_pages, prefill_chunk=args.prefill_chunk,
+                    prefix_cache=not args.no_prefix_cache, quant=quant,
+                    spec_decode=args.spec_decode, tracer=tracer,
+                    device=device)
+    if args.engine == "async":
+        eng = AsyncEngine(
+            model, params,
+            max_len=max(max_len, 256 + args.max_new) if args.interactive
+            else max_len, **paged_kw)
+        if args.interactive:
+            print("interactive async demo — one prompt per line, "
+                  "empty line or EOF quits")
+            while True:
+                try:
+                    line = input("> ")
+                except EOFError:
+                    break
+                if not line.strip():
+                    break
+                handle = eng.submit(Request(uid=0,
+                                            prompt=tok.encode(line),
+                                            sampling=sp))
+                stream_interactive(
+                    eng, handle,
+                    lambda s: print(s, end="", flush=True),
+                    decode=lambda t: tok.decode([t]), timeout=300)
+            eng.shutdown()
+            return 0
+        t_submit = []
+        handles = []
+        for r in reqs:          # live submission: all clients at once
+            t_submit.append(time.perf_counter())
+            handles.append(eng.submit(r))
+        if args.stats_every:
+            next_stat = time.perf_counter() + args.stats_every
+            while not all(h.done for h in handles):
+                time.sleep(min(0.05, args.stats_every))
+                if time.perf_counter() >= next_stat:
+                    print("stats:", eng.registry.stats_line(stat_names))
+                    next_stat += args.stats_every
+        comps = [eng.result(h, timeout=600) for h in handles]
+        st = eng.core.pool.stats
+        print(f"kv pool: {st['fresh_pages']} pages allocated, "
+              f"{st['shared_pages']} shared, {st['cow_copies']} CoW, "
+              f"{st['cached_tokens']} prompt tokens from cache, "
+              f"{st['retention_hits']} retention hits")
+        ttft = sorted(c.t_first - ts for c, ts in zip(comps, t_submit))
+        print(f"ttft: p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, "
+              f"max {ttft[-1] * 1e3:.1f} ms")
+        # TTFT decomposition: queue-wait (submit -> first slot) +
+        # prefill (slot -> first token) — Completion.t_sched
+        qw = sorted(c.t_sched - c.t0 for c in comps)
+        print(f"queue-wait: p50 {qw[len(qw) // 2] * 1e3:.1f} ms, "
+              f"max {qw[-1] * 1e3:.1f} ms")
+        eng.shutdown()
+    elif args.engine == "continuous":
+        eng = ContinuousServingEngine(model, params, max_len=max_len,
+                                      **paged_kw)
         comps = eng.generate(reqs)
         st = eng.pool.stats
         print(f"kv pool: {st['fresh_pages']} pages allocated, "
@@ -146,9 +299,19 @@ def main(argv=None) -> int:
         comps = eng.generate(reqs, max_batch=args.max_batch)
     for c, p in zip(comps, prompts):
         print(f"[{c.uid}] {p!r} -> {tok.decode(c.tokens)!r}")
-    rep = throughput_report(comps, **eng.last_phase_s)
+    # async completions carry t0/t1 stamps; the sync engines report
+    # their own phase times
+    phase = getattr(eng, "last_phase_s", None) or {}
+    rep = throughput_report(comps, **phase)
     print("throughput:", {k: round(v, 2) if isinstance(v, float) else v
                           for k, v in rep.items()})
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            f.write(eng.registry.snapshot_json())
+        print(f"metrics snapshot -> {args.metrics_json}")
+    if tracer is not None:
+        n = tracer.write_jsonl(args.trace)
+        print(f"trace: {n} events -> {args.trace}")
     return 0
 
 

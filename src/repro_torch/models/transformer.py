@@ -11,6 +11,8 @@
                                                -> (logits, cache)
     decode_step(params, cache, tokens, pos[, page_size=...])
                                                -> (logits, cache)
+    verify_step(params, cache, tokens, pos, n_fed, page_size=...)
+                                               -> (logits, cache)
 
 for decoder stacks of self-attention ("attn") and RG-LRU ("rglru")
 layers with an MLP FFN: Qwen3, Gemma3, the bench-tiny model and
@@ -57,8 +59,8 @@ allocates int8 pages with per-(row, kv head) f32 scales
 (``repro_torch.quant.kv_int8``).
 
 Not part of the port yet (each raises ``NotImplementedError`` naming
-the arch or feature): MoE, SSD and cross-attention layers,
-encoder-decoder stacks and ``verify_step``.
+the arch or feature): MoE, SSD and cross-attention layers and
+encoder-decoder stacks.
 """
 
 from __future__ import annotations
@@ -200,6 +202,10 @@ def _paged_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     through the block table after this chunk's write and attends with
     absolute-position causal masking.  Decode (S == 1) writes one row per
     sequence and reads through the block table with the paged kernel.
+    Speculative verify (``paged['verify']``, S columns per sequence)
+    writes all B * S fresh rows first, then reads offset s with the same
+    paged kernel a sequential decode step runs, at ``kv_len + s``: the
+    rows a decode at that position would see (idle lanes stay at 0).
 
     An int8 pool (``init_cache(kv_dtype="int8")``) is told by its
     ``k_scale``/``v_scale`` buffers: fresh rows are quantized per
@@ -223,6 +229,22 @@ def _paged_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             cache[name].index_copy_(0, slots, codes)
             cache[f"{name}_scale"].index_copy_(0, slots, scales)
 
+    if paged.get("verify"):                   # speculative multi-token verify
+        B, _, Hkv, D = k.shape
+        write(k.reshape(B * S, Hkv, D), v.reshape(B * S, Hkv, D))
+        kv_len = paged["kv_len"]
+        outs = []
+        for s in range(S):
+            # on the device: the kernel's split plan never reads kv_lens
+            kv_len_s = torch.where(kv_len > 0, kv_len + s,
+                                   torch.zeros_like(kv_len))
+            outs.append(paged_gqa_decode_attention(
+                q[:, s:s + 1], ck, cv, paged["block_tables"], kv_len_s,
+                window, page_size=paged["page_size"],
+                softcap=cfg.attn_logit_softcap,
+                impl=paged.get("impl", "auto"),
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale")))
+        return torch.cat(outs, dim=1)
     if S > 1:                                 # prefill: one sequence
         write(k[0], v[0])
         ctx = paged.get("prefill_ctx")
@@ -249,6 +271,34 @@ def _paged_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         page_size=paged["page_size"], softcap=cfg.attn_logit_softcap,
         impl=paged.get("impl", "auto"), k_scale=cache.get("k_scale"),
         v_scale=cache.get("v_scale"))
+
+
+def _paged_slots(bt: torch.Tensor, pos: torch.Tensor, S: int,
+                 page_size: int, n_fed: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where a paged decode (S = 1) or verify step (S columns) reads and
+    writes: the absolute positions (B, S) of each lane's fed columns from
+    ``pos`` (B,) on, their physical write slots (B * S,) through the block
+    table ``bt``, and the lanes' kv_len (B,) int32 before the step.
+    Idle lanes (``pos < 0``) and columns at or past ``n_fed`` write to
+    the scratch page: an idle lane's table may be populated (a sequence
+    prefilled this step but not decoding yet would lose its first page),
+    and a column past a lane's drafts has no page grant.  A column near
+    ``max_len`` may point past the table: the read is clamped (JAX clamps
+    implicitly), and such a column is past ``n_fed``."""
+    B, max_pages = bt.shape
+    safe_pos = pos.clamp(min=0)
+    offs = torch.arange(S, device=pos.device)[None, :]
+    positions = safe_pos[:, None] + offs
+    lanes = torch.arange(B, device=pos.device)[:, None]
+    page_idx = (positions // page_size).clamp(max=max_pages - 1)
+    phys = bt[lanes, page_idx].long() * page_size + positions % page_size
+    valid = pos[:, None] >= 0
+    if n_fed is not None:
+        valid = valid & (offs < n_fed[:, None])
+    write_slots = torch.where(valid, phys, positions % page_size)
+    return (positions, write_slots.reshape(B * S),
+            (pos + 1).clamp(min=0).to(torch.int32))
 
 
 def _write_cache(ck: torch.Tensor, cv: torch.Tensor, cp: torch.Tensor,
@@ -665,28 +715,48 @@ class Model:
                            window_override: Optional[int] = None,
                            impl: str = "auto",
                            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        pos = pos.long()                                  # (B,)
-        safe_pos = pos.clamp(min=0)
-        x = self._embed(params, tokens)                   # (B, 1, d)
         bt = cache["block_tables"]
-        B, max_pages = bt.shape
-        lanes = torch.arange(B, device=pos.device)
-        page_idx = (safe_pos // page_size).clamp(max=max_pages - 1)
-        phys = bt[lanes, page_idx].long() * page_size + safe_pos % page_size
-        # idle lanes (pos < 0) MUST land on the scratch page even when
-        # their slot's block table is populated (a sequence prefilled
-        # this step but not decoding yet would lose its first page)
-        write_slots = torch.where(pos >= 0, phys, safe_pos % page_size)
-        kv_len = (pos + 1).clamp(min=0).to(torch.int32)
+        positions, write_slots, kv_len = _paged_slots(bt, pos.long(), 1,
+                                                      page_size)
         paged = {"page_size": page_size, "write_slots": write_slots,
                  "block_tables": bt, "kv_len": kv_len, "impl": impl}
-        x = self._run_layers(params, x, safe_pos[:, None], cache["layers"],
-                             window_override=window_override, paged=paged)
+        x = self._run_layers(params, self._embed(params, tokens), positions,
+                             cache["layers"], window_override=window_override,
+                             paged=paged)
         return self._logits(params, x), cache
 
-    def verify_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative verify (verify_step) is not ported yet")
+    def verify_step(self, params: Params, cache: Dict[str, Any],
+                    tokens: torch.Tensor, pos: torch.Tensor,
+                    n_fed: torch.Tensor, *, page_size: int,
+                    window_override: Optional[int] = None,
+                    impl: str = "auto",
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Speculative multi-token verify against the paged cache.
+
+        ``tokens`` (B, S) feeds each lane its last sampled token plus up
+        to S - 1 draft tokens; ``pos`` (B,) is the absolute position of
+        column 0 (the fed token's, as in decode; ``pos[b] < 0`` marks an
+        idle lane); ``n_fed`` (B,) counts the lane's real leading columns
+        (1 = plain decode riding along).  Idle lanes and columns at or
+        past ``n_fed`` write to the scratch page; their logits are
+        garbage the caller ignores.
+
+        Returns logits (B, S, V): column j scores position ``pos + j``
+        over exactly the rows a sequential decode step there would read
+        (``kv_len = pos + 1 + j``), so its argmax is the token the
+        non-speculative engine emits after accepting j drafts.  ``impl``
+        picks the attention read as in :meth:`decode_step`.
+        """
+        bt = cache["block_tables"]
+        positions, write_slots, kv_len = _paged_slots(
+            bt, pos.long(), tokens.shape[1], page_size, n_fed.long())
+        paged = {"page_size": page_size, "write_slots": write_slots,
+                 "block_tables": bt, "kv_len": kv_len, "verify": True,
+                 "impl": impl}
+        x = self._run_layers(params, self._embed(params, tokens), positions,
+                             cache["layers"], window_override=window_override,
+                             paged=paged)
+        return self._logits(params, x), cache
 
 
 def build_model(cfg: ModelConfig) -> Model:

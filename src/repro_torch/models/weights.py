@@ -13,6 +13,11 @@ and are viewed as ``torch.bfloat16`` on this side, bit for bit.
 :func:`params_to_numpy` is the way back (bf16 leaves as uint16 bits).
 A tree the reference has already quantized (``{"q4_packed": uint8,
 "q4_scales": f32}`` subtrees) crosses the same way, bit for bit.
+
+:func:`save_params_npz` / :func:`load_params_npz` carry a tree through
+an ``.npz`` file, one array per leaf named by its path: how the serve
+CLI (``--params``) serves weights that were drawn elsewhere, such as
+the reference's ``Model.init(PRNGKey(0))``.
 """
 
 from __future__ import annotations
@@ -78,3 +83,74 @@ def params_to_numpy(tree: Any) -> Any:
 def params_to(tree: Any, device: Any) -> Any:
     """The tree with every tensor on ``device`` (no copy where it is)."""
     return tree_map(lambda t: t.to(device), tree)
+
+
+#: npz key syntax: path parts joined by "/", a list index written "#i",
+#: and a bfloat16 leaf (stored as its uint16 bits) marked by this suffix
+_BF16_SUFFIX = "@bfloat16"
+
+
+def _npz_key(path: Tuple) -> str:
+    parts = []
+    for p in path:
+        if isinstance(p, int):
+            parts.append(f"#{p}")
+        elif not isinstance(p, str) or "/" in p or p.startswith("#") \
+                or "@" in p:
+            raise ValueError(f"parameter path part {p!r} has no npz name")
+        else:
+            parts.append(p)
+    return "/".join(parts)
+
+
+def save_params_npz(tree: Any, path: str) -> None:
+    """Write a parameter tree (numpy leaves, as the reference's tree
+    after ``np.asarray``, or torch tensors) to ``path`` as an ``.npz``,
+    one array per leaf; bfloat16 leaves as their uint16 bits, with the
+    dtype recorded in the name.  A dict or list without leaves (an empty
+    tail of layers) is not stored: no model reads one."""
+    arrays = {}
+    for p, leaf in tree_leaves_with_path(tree):
+        if isinstance(leaf, torch.Tensor):
+            bf16 = leaf.dtype == torch.bfloat16
+            arr = _to_numpy(leaf)
+        else:
+            arr = np.asarray(leaf)
+            bf16 = arr.dtype.name == "bfloat16"
+            if bf16:
+                arr = np.array(arr).view(np.uint16)
+        arrays[_npz_key(p) + (_BF16_SUFFIX if bf16 else "")] = arr
+    np.savez(path, **arrays)
+
+
+def _listify(node: Any) -> Any:
+    """Dicts keyed by list indices (``#i``) back into lists."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.startswith("#") for k in node):
+        idx = sorted(int(k[1:]) for k in node)
+        if idx != list(range(len(idx))):
+            raise ValueError(f"list indices {idx} are not 0..{len(idx) - 1}")
+        return [_listify(node[f"#{i}"]) for i in idx]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def load_params_npz(path: str, device: Any = "cuda") -> Any:
+    """The tree :func:`save_params_npz` wrote, as torch tensors on
+    ``device`` (bfloat16 leaves viewed back from their bits)."""
+    root: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            name, bf16 = key, key.endswith(_BF16_SUFFIX)
+            if bf16:
+                name = key[:-len(_BF16_SUFFIX)]
+            arr = data[key]
+            t = torch.from_numpy(np.array(arr))
+            if bf16:
+                t = t.view(torch.int16).view(torch.bfloat16)
+            *parents, leaf = name.split("/")
+            node = root
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = t.to(device)
+    return _listify(root)

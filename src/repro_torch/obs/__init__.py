@@ -6,15 +6,21 @@
 * :mod:`repro_torch.obs.trace` — :class:`RequestTracer`: per-request
   lifecycle events stamped from the engine's injected clock, exported
   as JSONL.
+* :mod:`repro_torch.obs.validate` — schema checks for both exports;
+  also a CLI: ``python -m repro_torch.obs.validate --metrics M.json
+  --trace T.jsonl``.
 """
 
 from .metrics import (DEFAULT_BUCKETS_MS, Counter, Gauge, Histogram,
                       MetricsRegistry, NullRegistry)
 from .trace import (NullTracer, RequestTracer, TraceEvent, load_jsonl,
                     reconstruct_spans, validate_events)
+from .validate import (validate_snapshot, validate_snapshot_file,
+                       validate_trace_file)
 
 __all__ = [
     "Counter", "DEFAULT_BUCKETS_MS", "Gauge", "Histogram",
     "MetricsRegistry", "NullRegistry", "NullTracer", "RequestTracer",
     "TraceEvent", "load_jsonl", "reconstruct_spans", "validate_events",
+    "validate_snapshot", "validate_snapshot_file", "validate_trace_file",
 ]

@@ -19,7 +19,7 @@ per-(node, shard) pool gauges, per-shard dispatch times, etc.
 Two export surfaces:
 
 * :meth:`MetricsRegistry.snapshot` — a plain-dict JSON document
-  (schema checked by the reference package's ``repro.obs.validate``),
+  (schema checked by ``repro_torch.obs.validate``),
   what ``--metrics-json`` writes and benches assert on;
 * :meth:`MetricsRegistry.to_prometheus` — the Prometheus text
   exposition format (``name{label="v"} value`` plus
@@ -273,9 +273,8 @@ class MetricsRegistry:
 
     # -- export ----------------------------------------------------------
     def snapshot(self) -> Dict[str, object]:
-        """Point-in-time JSON document (the schema is the reference
-        package's ``repro.obs.validate``): one entry per (metric, label
-        set)."""
+        """Point-in-time JSON document (see ``repro_torch.obs.validate``
+        for the schema): one entry per (metric, label set)."""
         with self._lock:
             counters, gauges, hists = [], [], []
             for name in sorted(self._metrics):

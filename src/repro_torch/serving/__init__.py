@@ -10,6 +10,9 @@ What this slice of the port has (counterparts of ``repro.serving``):
 * :class:`~repro_torch.serving.continuous.ContinuousServingEngine` —
   the synchronous pre-declared-arrivals driver (what
   ``launch/serve.py --engine continuous`` builds);
+* :class:`~repro_torch.serving.async_engine.AsyncEngine` — live
+  submit/stream/poll/cancel on a background stepper thread
+  (``--engine async``);
 * :class:`~repro_torch.serving.engine.ServingEngine` over
   :class:`~repro_torch.serving.runner.BucketRunner` — the length-bucket
   baseline over the ring cache (``--engine bucket``, the CLI default),
@@ -17,11 +20,16 @@ What this slice of the port has (counterparts of ``repro.serving``):
 * the host-side KV pool (``kv_pool``), scheduler (``scheduler``),
   sampler, request records and fault switchboard (``faults``).
 
-Not ported yet: the async engine, HTTP front end, router and worker
-fleet, tensor-parallel serving and speculative decoding.  Quantized serving (``quant=``) is ported.
+Both paged engines take ``spec_decode=k`` (prompt-lookup drafts checked
+by one batched verify forward) and ``quant=`` (Q4_0 weights, int8 KV
+pages).  Not ported yet: the HTTP front end, router and worker fleet,
+and tensor-parallel serving.
 """
 
 from . import faults
+from .async_engine import (AsyncEngine, AsyncEngineError, CancelledError,
+                           DeadlineExceededError, PollResult,
+                           RequestHandle, RequestState)
 from .continuous import ContinuousServingEngine
 from .core import (Clock, EngineCore, MonotonicClock, StepResult,
                    VirtualClock)
@@ -34,10 +42,12 @@ from .sampler import SamplingParams, sample, sample_grouped
 from .scheduler import ContinuousScheduler, Schedule, Sequence
 
 __all__ = [
-    "BucketRunner", "Clock", "Completion", "ContinuousScheduler",
-    "ContinuousServingEngine", "EngineCore", "KVCachePool", "KVPoolConfig",
-    "ModelRunner", "MonotonicClock", "PRIORITIES", "PrefixCache",
-    "PrefixMatch", "Request", "SamplingParams", "Schedule", "Sequence",
+    "AsyncEngine", "AsyncEngineError", "BucketRunner", "CancelledError",
+    "Clock", "Completion", "ContinuousScheduler", "ContinuousServingEngine",
+    "DeadlineExceededError", "EngineCore", "KVCachePool", "KVPoolConfig",
+    "ModelRunner", "MonotonicClock", "PRIORITIES", "PollResult",
+    "PrefixCache", "PrefixMatch", "Request", "RequestHandle",
+    "RequestState", "SamplingParams", "Schedule", "Sequence",
     "ServingEngine", "StepResult", "VirtualClock", "faults",
     "prefix_chain_key", "sample", "sample_grouped", "throughput_report",
 ]

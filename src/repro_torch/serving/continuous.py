@@ -12,9 +12,11 @@ prefix caching + retention, chunked prefill, copy-on-write, preemption
 — live in the core; this file is only the loop.
 
 This is the port's ``ContinuousServingEngine``: the same driver over
-the PyTorch core.  It runs on ``device="cuda"`` unless the caller passes
-``device="cpu"``.  The reference's live-traffic ``AsyncEngine`` is not
-ported yet.
+the PyTorch core, ``spec_decode=k`` (speculative verify) included.  It
+runs on ``device="cuda"`` unless the caller passes ``device="cpu"``.
+For live traffic (submit/stream/cancel while the engine steps) use
+:class:`~repro_torch.serving.async_engine.AsyncEngine`, which drives the
+same core from a background stepper thread.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ KV-pool and sequence bookkeeping (host code, copied), over the port's
 a ``torch.Generator`` seeded from ``seed`` on the runner's device.
 Quantized serving (``quant=``, ``repro_torch.quant.QuantPolicy``) sizes
 the pool's pages by the policy's ``kv_dtype`` and hands the rest to the
-runner.  Speculative decoding (``spec_decode > 0``) and tensor-parallel
-serving (``mesh=``) are not ported yet and raise ``NotImplementedError``.
+runner.  Speculative decoding (``spec_decode=k``) drafts up to k tokens
+per greedy lane by prompt lookup and verifies them in one batched
+forward (``ModelRunner.verify``).  Tensor-parallel serving (``mesh=``)
+is not ported yet and raises ``NotImplementedError``.
 
 Middle of the three-layer split (runner / core / async): one
 :meth:`EngineCore.step` call is exactly one iteration of the old
@@ -19,8 +21,8 @@ no thread** of its own.  Anyone can drive it:
 * the synchronous driver (``ContinuousServingEngine.generate``) loops
   it over a pre-declared arrivals list and must produce byte-identical
   greedy tokens to the pre-split engine;
-* a live-traffic front end (the reference's ``AsyncEngine``, not
-  ported yet) loops it against a lock-guarded inbox;
+* the :class:`~repro_torch.serving.async_engine.AsyncEngine` stepper
+  thread loops it against a live, lock-guarded inbox;
 * tests call it step-by-step and assert on the returned
   :class:`StepResult` without any timing races.
 
@@ -50,6 +52,7 @@ from .kv_pool import KVCachePool, KVPoolConfig
 from .runner import ModelRunner, _pad_bucket
 from .sampler import sample, sample_grouped
 from .scheduler import ContinuousScheduler, Sequence
+from .spec import lookahead_for, note_accept, propose
 
 
 class Clock:
@@ -139,10 +142,12 @@ class EngineCore:
         cfg = model.cfg
         if spec_decode < 0:
             raise ValueError("spec_decode must be >= 0")
-        if spec_decode:
-            raise NotImplementedError(
-                "speculative decoding (spec_decode > 0) is not ported yet: "
-                "it needs the batched verify step")
+        #: self-speculative decoding lookahead (``--spec-decode k``):
+        #: each decode step drafts up to k tokens per greedy lane by
+        #: prompt lookup (serving.spec) and verifies them in ONE
+        #: batched forward — accepted drafts are decode steps the
+        #: device never ran.  0 disables (plain one-token decode).
+        self.spec_decode = int(spec_decode)
         if quant is None:
             quant = QuantPolicy()
         #: quantization policy (``repro_torch.quant.QuantPolicy``): the
@@ -177,7 +182,7 @@ class EngineCore:
         self.pool.bind_registry(self.registry)
         self.scheduler = ContinuousScheduler(
             self.pool, max_running=max_running, max_len=max_len,
-            prefill_chunk=prefill_chunk, spec_lookahead=0,
+            prefill_chunk=prefill_chunk, spec_lookahead=self.spec_decode,
             registry=self.registry)
         self.runner = ModelRunner(
             model, params, max_running=max_running, max_len=max_len,
@@ -227,6 +232,39 @@ class EngineCore:
             "decode-batch occupancy per decoding step",
             buckets=tuple(float(i) for i in range(1, max_running + 1)),
             ).labels()
+        # speculative-decoding instruments, bound only when the feature
+        # is on so k=0 snapshots stay free of dead spec.* series
+        self._c_spec_drafted = self._c_spec_accepted = None
+        self._c_spec_rollbacks = self._c_spec_pages = None
+        self._c_spec_autooff = None
+        self._h_spec_accept = None
+        if self.spec_decode:
+            self._c_spec_autooff = reg.counter(
+                "spec.auto_disabled",
+                "sequences whose speculation was turned off after the "
+                "windowed accept rate collapsed (spec.note_accept)"
+            ).labels()
+            self._c_spec_drafted = reg.counter(
+                "spec.drafted",
+                "draft tokens proposed by the prompt-lookup drafter "
+                "and fed to verify").labels()
+            self._c_spec_accepted = reg.counter(
+                "spec.accepted",
+                "draft tokens accepted (each one a decode forward the "
+                "device never ran)").labels()
+            self._c_spec_rollbacks = reg.counter(
+                "spec.rollbacks",
+                "verify steps that rejected at least one draft token "
+                "for a lane").labels()
+            self._c_spec_pages = reg.counter(
+                "spec.pages_returned",
+                "speculative page grants returned to the pool after a "
+                "rejected draft (KVCachePool.truncate_to)").labels()
+            self._h_spec_accept = reg.histogram(
+                "spec.accept_rate",
+                "per-lane fraction of drafted tokens accepted each "
+                "verify step",
+                buckets=tuple(i / 8 for i in range(1, 9))).labels()
         # per-(node, shard) pool gauges, sampled after every step; a
         # page's bytes are split across every shard's head-slice pool,
         # so each shard sees the same per-node free count.  Skipped
@@ -452,24 +490,40 @@ class EngineCore:
         if plan.decodes:
             t0 = clock.now()
             self._sync_tables()
-            pos = np.full((self.max_running,), -1, np.int32)
-            fed = np.zeros((self.max_running, 1), np.int32)
-            # idle lanes borrow a real lane's params so grouping never
-            # depends on dead slots
-            sps = [plan.decodes[0].request.sampling] * self.max_running
-            for seq in plan.decodes:
-                pos[seq.slot] = seq.next_pos - 1      # fed-token position
-                fed[seq.slot, 0] = seq.generated[-1]
-                sps[seq.slot] = seq.request.sampling
-            logits = self.runner.decode(fed, pos)
-            toks = sample_grouped(logits, sps, self._next_key())
-            for seq in plan.decodes:
-                tok = int(toks[seq.slot, 0])
-                seq.generated.append(tok)
-                res.emitted.append((seq.uid, tok))
-                if seq.is_done(self.max_len):
-                    self._meta[seq.uid]["t1"] = clock.now()
-            n_emitted = len(plan.decodes)
+            # draft by prompt lookup (greedy lanes only); a step where
+            # no lane drafts falls through to plain one-token decode so
+            # non-repetitive traffic never pays the (k+1)-wide forward
+            drafts: Dict[int, List[int]] = {}
+            if self.spec_decode:
+                for seq in plan.decodes:
+                    k_eff = lookahead_for(seq, self.spec_decode,
+                                          self.max_len)
+                    if k_eff > 0:
+                        d = propose(seq.full_prompt, k_eff)
+                        if d:
+                            drafts[seq.slot] = d
+            if drafts:
+                n_emitted = self._decode_verify(plan, drafts, res)
+            else:
+                pos = np.full((self.max_running,), -1, np.int32)
+                fed = np.zeros((self.max_running, 1), np.int32)
+                # idle lanes borrow a real lane's params so grouping
+                # never depends on dead slots
+                sps = [plan.decodes[0].request.sampling] \
+                    * self.max_running
+                for seq in plan.decodes:
+                    pos[seq.slot] = seq.next_pos - 1  # fed-token position
+                    fed[seq.slot, 0] = seq.generated[-1]
+                    sps[seq.slot] = seq.request.sampling
+                logits = self.runner.decode(fed, pos)
+                toks = sample_grouped(logits, sps, self._next_key())
+                for seq in plan.decodes:
+                    tok = int(toks[seq.slot, 0])
+                    seq.generated.append(tok)
+                    res.emitted.append((seq.uid, tok))
+                    if seq.is_done(self.max_len):
+                        self._meta[seq.uid]["t1"] = clock.now()
+                n_emitted = len(plan.decodes)
             t1 = clock.now()
             if self._t_last_decode is not None:
                 gap = t1 - self._t_last_decode
@@ -487,3 +541,86 @@ class EngineCore:
             self._g_retained.set(self.pool.n_retained())
 
         return res
+
+    def _decode_verify(self, plan, drafts: Dict[int, List[int]],
+                       res: StepResult) -> int:
+        """Speculative decode step: feed every decoding lane its last
+        token plus its draft (lanes without one ride along as plain
+        decode), verify all positions in one forward, accept each
+        lane's longest matching draft prefix plus the model's own token
+        at the first mismatch (the "bonus" token).
+
+        Greedy tokens equal k=0's: the verify step scores position j
+        with exactly the context sequential decode would see
+        (``Model.verify_step``), every emitted token is the model's own
+        greedy argmax there, emission stops at ``is_done`` exactly like
+        the one-token loop, and the step draws from the sampling
+        generator exactly what plain decode draws (draft lanes are
+        greedy, so sampling lanes see the identical random stream).
+        Unlike the reference's, the bits of column j rest on the matmul
+        library giving each row the same sums at M = B·S rows as at M =
+        B: so on the CPU (tests/test_torch_spec.py), not on the card,
+        where cuBLAS picks its kernel by M and the margin rule applies.
+        Returns the emitted-token count.
+        """
+        clock = self.clock
+        S = self.spec_decode + 1
+        pos = np.full((self.max_running,), -1, np.int32)
+        fed = np.zeros((self.max_running, S), np.int32)
+        n_fed = np.ones((self.max_running,), np.int32)
+        sps = [plan.decodes[0].request.sampling] * self.max_running
+        for seq in plan.decodes:
+            pos[seq.slot] = seq.next_pos - 1        # fed-token position
+            fed[seq.slot, 0] = seq.generated[-1]
+            ds = drafts.get(seq.slot)
+            if ds:
+                fed[seq.slot, 1:1 + len(ds)] = ds
+                n_fed[seq.slot] = 1 + len(ds)
+            sps[seq.slot] = seq.request.sampling
+        logits = self.runner.verify(fed, pos, n_fed)
+        # the model's greedy choice at every fed position — same
+        # argmax (same tie-breaking) sample() runs for greedy lanes
+        targets = logits.float().argmax(dim=-1).cpu().numpy()  # (B, S)
+        toks = sample_grouped(logits[:, :1], sps, self._next_key())
+        n_emitted = 0
+        for seq in plan.decodes:
+            ds = drafts.get(seq.slot)
+            if not ds:                      # plain decode rode along
+                tok = int(toks[seq.slot, 0])
+                seq.generated.append(tok)
+                res.emitted.append((seq.uid, tok))
+                n_emitted += 1
+                if seq.is_done(self.max_len):
+                    self._meta[seq.uid]["t1"] = clock.now()
+                continue
+            m = len(ds)
+            a = 0
+            while a < m and ds[a] == int(targets[seq.slot, a]):
+                a += 1
+            # emit the a accepted drafts + the bonus token, stopping at
+            # EOS / max_new exactly where one-token decode would have
+            for j in range(a + 1):
+                tok = int(targets[seq.slot, j])
+                seq.generated.append(tok)
+                res.emitted.append((seq.uid, tok))
+                n_emitted += 1
+                if seq.is_done(self.max_len):
+                    self._meta[seq.uid]["t1"] = clock.now()
+                    break
+            self._c_spec_drafted.inc(m)
+            self._c_spec_accepted.inc(a)
+            if a < m:
+                self._c_spec_rollbacks.inc()
+            self._h_spec_accept.observe(a / m)
+            # live accept-rate feedback: a lane whose windowed rate has
+            # collapsed stops drafting (lookahead_for returns 0) — the
+            # (k+1)-wide verify forward is pure loss for it
+            if note_accept(seq, a, m):
+                self._c_spec_autooff.inc()
+            # roll back the worst-case page grant: KV rows past the
+            # accepted frontier are garbage; pages past the next write
+            # go home (re-granted next step if the lane drafts again)
+            returned = self.pool.truncate_to(seq.uid, seq.next_pos)
+            if returned:
+                self._c_spec_pages.inc(returned)
+        return n_emitted

@@ -27,8 +27,12 @@ by ``init_cache`` and quantized / dequantized inside each call.
 (``serving.engine.ServingEngine``): ring-cache prefill and lockstep
 decode, one call each, with no cache of its own.
 
+Speculative decoding runs through :meth:`ModelRunner.verify`: one
+batched forward over each lane's last token plus its drafts
+(``Model.verify_step``).
+
 Not ported yet (``NotImplementedError``): tensor-parallel serving
-(``mesh=``) and speculative ``verify``.
+(``mesh=``).
 """
 
 from __future__ import annotations
@@ -52,13 +56,18 @@ def _pad_bucket(n: int, lo: int = 8) -> int:
 
 
 def resolve_device(device: Any) -> torch.device:
-    """``device`` as a torch.device; asking for CUDA without a GPU raises
-    (the port never carries on on the CPU unasked)."""
+    """``device`` as a torch.device, a CUDA device with its index (the
+    calling thread's current device where none is given, so that another
+    thread, such as the async engine's stepper, can make it current);
+    asking for CUDA without a GPU raises (the port never carries on on
+    the CPU unasked)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} was asked for but no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -96,8 +105,8 @@ class ModelRunner:
         # observability: per-call dispatch time (enqueue-to-return —
         # device completion is owned by whoever synchronises)
         self._now = clock.now if clock is not None else time.perf_counter
-        self._h_decode = self._h_prefill = None
-        self._c_q4_decode = self._c_q4_prefill = None
+        self._h_decode = self._h_prefill = self._h_verify = None
+        self._c_q4_decode = self._c_q4_prefill = self._c_q4_verify = None
         if registry is not None:
             self._h_decode = registry.histogram(
                 "runner.decode.dispatch_ms",
@@ -105,6 +114,10 @@ class ModelRunner:
             self._h_prefill = registry.histogram(
                 "runner.prefill.dispatch_ms",
                 "prefill-chunk dispatch wall per call").labels(shards="1")
+            self._h_verify = registry.histogram(
+                "runner.verify.dispatch_ms",
+                "speculative verify dispatch wall per call").labels(
+                    shards="1")
             if self.quant.weights == "q4":
                 # every forward under Q4_0 weights routes each projection
                 # through the dequantizing matmul: count them per phase
@@ -114,17 +127,13 @@ class ModelRunner:
                     "Q4_0 dequantizing matmuls")
                 self._c_q4_decode = c.labels(phase="decode")
                 self._c_q4_prefill = c.labels(phase="prefill")
+                self._c_q4_verify = c.labels(phase="verify")
         self.cache = model.init_cache(max_running, max_len,
                                       page_size=page_size, n_pages=n_pages,
                                       kv_dtype=self.quant.kv_dtype,
                                       device=self.device)
 
     # ------------------------------------------------------------------
-    def verify(self, fed: np.ndarray, pos: np.ndarray,
-               n_fed: np.ndarray) -> torch.Tensor:
-        raise NotImplementedError(
-            "speculative verify (ModelRunner.verify) is not ported yet")
-
     def set_block_tables(self, tables: np.ndarray) -> None:
         """Upload the host (max_running, max_pages) block-table array
         into the cache's device tensor."""
@@ -187,6 +196,28 @@ class ModelRunner:
             self._h_decode.observe((self._now() - t0) * 1e3)
         if self._c_q4_decode is not None:
             self._c_q4_decode.inc()
+        return logits
+
+    def verify(self, fed: np.ndarray, pos: np.ndarray,
+               n_fed: np.ndarray) -> torch.Tensor:
+        """One batched speculative verify step: ``fed`` (max_running, S)
+        = last sampled token + up to S - 1 draft tokens per lane,
+        ``pos`` (max_running,) absolute position of column 0 (-1 = idle
+        slot), ``n_fed`` (max_running,) real leading columns per lane.
+        Returns (max_running, S, V): column j's argmax is what plain
+        decode would emit after j accepted drafts (see
+        ``Model.verify_step``)."""
+        t0 = self._now() if self._h_verify is not None else 0.0
+        logits, _ = self.model.verify_step(
+            self.params, self.cache,
+            torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
+            torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
+            torch.from_numpy(np.asarray(n_fed, np.int64)).to(self.device),
+            page_size=self.page_size, window_override=self.window_override)
+        if self._h_verify is not None:
+            self._h_verify.observe((self._now() - t0) * 1e3)
+        if self._c_q4_verify is not None:
+            self._c_q4_verify.inc()
         return logits
 
 

@@ -69,15 +69,27 @@ CONFIGS = {
     "gemma3-1b-reduced": lambda: dataclasses.replace(
         jreduced(jget_config("gemma3-1b"), n_layers=6, d_model=64),
         dtype=jnp.float32),
+    "granite-3-8b-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("granite-3-8b")), dtype=jnp.float32),
+    "qwen2-72b-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("qwen2-72b")), dtype=jnp.float32),
     "recurrentgemma-3-layers": lambda: _rg(3),
     "recurrentgemma-7-layers": lambda: _rg(7),
 }
 
 
 def _shared(jcfg, seed=0):
-    """(reference model, reference params, port model, port params)."""
+    """(reference model, reference params, port model, port params); QKV
+    biases (zero at init) drawn at random so their branch computes
+    something."""
     jm = jbuild(jcfg)
     tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(seed)))
+    if jcfg.qkv_bias:
+        rng = np.random.default_rng(seed + 100)
+        attn = tree["layers"]["attn"]
+        for name in ("b_q", "b_k", "b_v"):
+            attn[name] = rng.normal(0, 0.5, attn[name].shape).astype(
+                attn[name].dtype)
     tm = build_model(_port_cfg(jcfg))
     return jm, jax.tree.map(jnp.asarray, tree), tm, \
         params_from_numpy(tree, "cpu")

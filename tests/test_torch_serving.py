@@ -213,13 +213,25 @@ def test_engine_greedy_tokens_match_the_reference(shared_model, case):
 
 
 def test_engine_refuses_missing_gpu_and_unported_features(shared_model):
+    """No GPU raises, and tensor-parallel serving (``mesh=``) is not
+    ported; speculative decoding is (``tests/test_torch_spec.py``), and
+    a negative lookahead is refused as in the reference."""
     _, _, tm, tparams = shared_model
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserving.ContinuousServingEngine(tm, tparams, max_len=32)
-    with pytest.raises(NotImplementedError, match="speculative"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tserving.AsyncEngine(tm, tparams, max_len=32)
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
         tserving.ContinuousServingEngine(tm, tparams, max_len=32,
-                                         spec_decode=2, device="cpu")
+                                         mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="spec_decode"):
+        tserving.ContinuousServingEngine(tm, tparams, max_len=32,
+                                         spec_decode=-1, device="cpu")
+    eng = tserving.ContinuousServingEngine(tm, tparams, max_len=32,
+                                           spec_decode=2, device="cpu")
+    assert eng.core.spec_decode == 2
+    assert eng.scheduler.spec_lookahead == 2
 
 
 def test_sampler_greedy_ties_and_top_k():
@@ -249,7 +261,12 @@ def test_port_imports_without_jax_or_the_reference():
         "import repro_torch.kernels.rglru_scan\n"
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.models.recurrent, repro_torch.models.ssm\n"
+        "import repro_torch.serving.async_engine, repro_torch.obs.validate\n"
+        "import repro_torch.configs.granite_3_8b\n"
+        "import repro_torch.configs.qwen2_72b, repro_torch.configs.shapes\n"
         "from repro_torch.serving import ServingEngine, BucketRunner\n"
+        "from repro_torch.serving import AsyncEngine, AsyncEngineError\n"
+        "from repro_torch.models.weights import load_params_npz\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and (m == 'repro'\n"
         "             or m.startswith(('repro.', 'jax', 'ml_dtypes'))))\n"
