@@ -115,7 +115,32 @@ non-zero if any phase fails, or if no CUDA device is present:
     versions on a clone of the ring cache; then a prefill call of the
     512-token bucket (B=4) is profiled by kernel (the scan must run once
     per RG-LRU layer; its share of the call is printed) and a decode step
-    (the contiguous kernel must run once per attention layer).
+    (the contiguous kernel must run once per attention layer);
+17. the HTTP front end, the router and the worker fleet:
+    a. full-width Qwen3-1.7B in bf16 (phase 5's weights, drawn again)
+       through ``AsyncEngine``, first in process and then behind the
+       port's ``HttpFrontend``: phase 5's 8 prompts from 8 concurrent
+       streaming HTTP clients, 32 greedy tokens each; the tokens must
+       equal the in-process run's under the margin rule, the ``done``
+       frames count 32, ``http.requests`` is 8 and ``http.inflight`` 0
+       afterwards, every page is free again, and the paged kernel ran
+       28 times per decode step;
+    b. a second engine with its own copy of the weights behind its own
+       frontend, a ``Router`` over two ``HttpWorkerClient``s and a front
+       ``HttpFrontend(router)``: the same 8 clients; the two requests
+       that share a prefix land on one replica (``router.affinity.hits``
+       >= 1), the tokens equal the in-process run's under the margin
+       rule, and the paged kernel ran 28 times per decode step of the
+       two engines; TTFT p50 and decode tok/s over HTTP are printed
+       beside the in-process run's, with the process's peak memory;
+    c. ``python -m repro_torch.launch.serve --arch qwen3-1.7b --engine
+       async --http --replicas 2 --max-respawns 1 --quant q4 --kv-dtype
+       int8`` (two reduced workers on the card, their log in
+       ``build/chip_smoke_fleet/``): 4 streams, each worker's
+       ``/metrics.json`` showing decode steps on int8 pages and Q4_0
+       forward calls, a SIGKILL of one worker healed by a respawn and
+       the router's readmission, 2 more streams, then SIGTERM: the front
+       door exits 0 and no worker outlives it.
 
 The build phase prints nvcc's register and spill report for every
 kernel, and the scan's plan and shared memory at its timed shapes.  It
@@ -125,7 +150,8 @@ times and bounds, the Q4_0 entry its M=8 and M=128 times and bounds by
 shape and its device time in a decode step and a prefill chunk, the scan
 entry its four timed shapes with their plans and its device time in the
 profiled prefill call; the paged entries and the Q4_0 entry also their
-launches in phase 10's k=2 run and their device time in a verify step),
+launches in phase 10's k=2 run and their device time in a verify step,
+the bf16 paged entry its launches in phases 17a and 17b),
 and as the last line ``{"ok": true, "device":
 {...}}``.  Nothing
 here imports JAX or the reference package.
@@ -481,6 +507,18 @@ def serve(torch, eng, prompts, cfg, kernels, label, card):
           f"{ttft[-1] * 1e3:.1f} ms, peak memory {peak / 2**30:.2f} GiB — "
           f"{card}", flush=True)
     return launches, decode_steps, fwd
+
+
+def serve_prompts(np, V):
+    """Phase 5's traffic (seed 0): 8 prompts of 128-512 random tokens,
+    the third and the fourth sharing a 256-token prefix."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, V, 256).tolist()
+    lens_p = [128, 200, 256 + 64, 256 + 160, 384, 448, 500, 512]
+    prompts = [rng.integers(0, V, n).tolist() for n in lens_p]
+    prompts[2] = prefix + prompts[2][256:]
+    prompts[3] = prefix + prompts[3][256:]
+    return prompts
 
 
 def parity_state(torch, np, gen, model, params, prompts, kv_dtype):
@@ -1319,30 +1357,46 @@ def async_spec_phase(torch, model, draw_params, cfg, kernels, prompts,
               f"{run['free'][1]} — {card}", flush=True)
     if runs[SPEC_K]["spec"]["spec.drafted"] <= 0:
         fail(f"{label}: prompt lookup drafted nothing")
-    agree = total = 0
-    for c2, c0, prompt in zip(runs[SPEC_K]["comps"], runs[0]["comps"],
-                              prompts):
-        total += len(c0.tokens)
-        diff = [i for i, (a, b) in enumerate(zip(c2.tokens, c0.tokens))
-                if a != b]
-        if not diff:
-            agree += len(c0.tokens)
-            continue
-        i = diff[0]
-        agree += i
-        margin = greedy_margin(torch, model, runs[0]["params"], prompt,
-                               c0.tokens, i, quant.kv_dtype if quant
-                               else "fp32", dev)
-        print(f"[async] {label}: request {c0.uid} k={SPEC_K} and k=0 first "
-              f"differ at token {i}; k=0 top-2 margin there {margin:.4f} "
-              f"(tol {tol})")
-        if not margin < tol:
-            fail(f"{label}: request {c0.uid}: k={SPEC_K} and k=0 differ at "
-                 f"token {i} with a clear margin {margin:.4f}")
+    agree, total = margin_rule(
+        torch, model, runs[0]["params"], prompts,
+        [c.tokens for c in runs[SPEC_K]["comps"]],
+        [c.tokens for c in runs[0]["comps"]],
+        quant.kv_dtype if quant else "fp32", tol,
+        f"[async] {label}", f"k={SPEC_K}", "k=0", dev)
     print(f"[async] {label}: k={SPEC_K} tokens agree with k=0 on "
           f"{agree}/{total} (up to each request's first difference)")
     del runs[0]["params"]
     return runs
+
+
+def margin_rule(torch, model, params, prompts, got, want, kv_dtype, tol,
+                tag, got_name, want_name, dev="cuda"):
+    """Greedy tokens ``got`` against ``want`` (lists of token lists, one
+    per prompt) under the margin rule: where a request's two first
+    differ, ``want``'s top-2 logit margin there (recomputed on one lane
+    with ``params``) must be under ``tol``.  Returns (tokens that agree
+    up to each request's first difference, tokens in all)."""
+    agree = total = 0
+    for j, (g, w, prompt) in enumerate(zip(got, want, prompts)):
+        total += len(w)
+        if len(g) != len(w):
+            fail(f"{tag}: request {j}: {got_name} gave {len(g)} tokens, "
+                 f"{want_name} {len(w)}")
+        diff = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+        if not diff:
+            agree += len(w)
+            continue
+        i = diff[0]
+        agree += i
+        margin = greedy_margin(torch, model, params, prompt, w, i, kv_dtype,
+                               dev)
+        print(f"{tag}: request {j} {got_name} and {want_name} first differ "
+              f"at token {i}; {want_name} top-2 margin there {margin:.4f} "
+              f"(tol {tol})")
+        if not margin < tol:
+            fail(f"{tag}: request {j}: {got_name} and {want_name} differ at "
+                 f"token {i} with a clear margin {margin:.4f}")
+    return agree, total
 
 
 def cli_phase(card):
@@ -1376,6 +1430,468 @@ def cli_phase(card):
              f"{check_run.stderr[-1000:]}")
     print(f"[cli] --engine async --spec-decode {SPEC_K} on the card: exit "
           f"0 in {wall:.1f} s; metrics and trace validate — {card}")
+
+
+#: greedy tokens each request of phases 17a and 17b asks for
+HTTP_TOKENS = 32
+#: the vocabulary of the CLI's reduced configs (``reduced_config``'s 512)
+REDUCED_VOCAB = 512
+
+
+def http_stream(host, port, prompt, max_tokens, timeout=600.0):
+    """One streamed ``POST /v1/completions`` on its own connection.
+    Returns (token ids, the ``done`` frame, seconds from sending the
+    request to the first token frame, seconds to ``[DONE]``); raises on
+    another status than 200, an ``error`` frame or a stream cut short."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": prompt, "max_tokens": max_tokens,
+                                 "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(f"HTTP {resp.status}: {resp.read()[:300]!r}")
+        toks, done, t_first = [], None, None
+        while True:
+            line = resp.readline()
+            if not line:
+                raise RuntimeError("the stream closed before [DONE]")
+            line = line.strip()
+            if not line.startswith(b"data:"):
+                continue
+            payload = line[5:].strip()
+            if payload == b"[DONE]":
+                break
+            ev = json.loads(payload)
+            if "error" in ev:
+                raise RuntimeError(f"error frame: {ev['error']}")
+            if "token" in ev:
+                if t_first is None:
+                    t_first = time.perf_counter()
+                toks.append(int(ev["token"]))
+            elif "done" in ev:
+                done = ev["done"]
+        t1 = time.perf_counter()
+    finally:
+        conn.close()
+    return toks, done, (t_first or t1) - t0, t1 - t0
+
+
+def http_clients(host, port, prompts, max_tokens):
+    """``prompts`` sent at once by concurrent streaming clients, one
+    thread each; their :func:`http_stream` results in prompt order."""
+    with ThreadPoolExecutor(len(prompts)) as ex:
+        futs = [ex.submit(http_stream, host, port, p, max_tokens)
+                for p in prompts]
+        return [f.result() for f in futs]
+
+
+def http_clients_apart(host, port, prompts, max_tokens):
+    """:func:`http_clients` in a process of its own (stdlib only), so that
+    the clients' threads do not take the serving process's interpreter
+    lock from its engine steppers, as a remote client would not."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return ex.submit(http_clients, host, port, prompts,
+                         max_tokens).result()
+
+
+def http_json(host, port, path):
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=30)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def snap_value(doc, kind, name, **labels):
+    """Sum over the series of ``name`` in a ``/metrics.json`` document
+    whose labels include ``labels`` (a histogram's count)."""
+    return sum(e["count"] if kind == "histograms" else e["value"]
+               for e in doc[kind] if e["name"] == name
+               and all(str(e["labels"].get(k)) == str(v)
+                       for k, v in labels.items()))
+
+
+def check_streams(res, n_tokens, V, what):
+    """Every stream gave ``n_tokens`` ids in ``[0, V)`` and a ``done``
+    frame that counts them."""
+    for j, (toks, done, _, _) in enumerate(res):
+        if len(toks) != n_tokens or not all(0 <= t < V for t in toks):
+            fail(f"{what}: request {j}: {len(toks)} tokens, in vocab: "
+                 f"{all(0 <= t < V for t in toks)}")
+        if done is None or done["completion_tokens"] != n_tokens:
+            fail(f"{what}: request {j}: done frame {done}")
+
+
+def engine_counts(eng):
+    """(runner calls by kind, engine phase seconds) from the registry."""
+    reg = eng.registry
+    calls = {k: reg.get(f"runner.{k}.dispatch_ms").value(shards="1")[1]
+             for k in ("prefill", "decode", "verify")}
+    return calls, {p: reg.get(f"serving.phase.{p}_s").value()
+                   for p in ("prefill", "decode")}
+
+
+def idle(torch, *engines):
+    for eng in engines:
+        while eng.core.has_work():
+            time.sleep(0.005)
+    torch.cuda.synchronize()
+
+
+def warm_up(torch, eng, V):
+    """One short request of its own (no prefix shared with the measured
+    prompts) through a fresh engine, so that no measured run pays for
+    the stepper thread's first calls."""
+    from repro_torch.serving import Request, SamplingParams
+    eng.result(eng.submit(Request(
+        uid=0, prompt=list(range(V - 40, V)),
+        sampling=SamplingParams(max_new_tokens=2))), timeout=600)
+    idle(torch, eng)
+
+
+def http_phase(torch, np, kernels, card, dev="cuda", cfg=None):
+    """Phases 17a and 17b: full-width Qwen3-1.7B in bf16 (phase 5's
+    weights, drawn again from seed 0) through ``AsyncEngine`` behind the
+    port's HTTP front end, on phase 5's 8 prompts, 32 greedy tokens each.
+
+    The in-process run first: a fresh engine, every request submitted at
+    once.  (a) a fresh engine behind one ``HttpFrontend``
+    (``tokenizer=None``), 8 concurrent streaming clients; (b) a second
+    fresh engine with its own copy of the weights behind its own
+    frontend, a ``Router`` over two ``HttpWorkerClient``s pointed at the
+    two frontends and a front ``HttpFrontend(router)``, the same 8
+    clients.  Each run's kernel counts are set to 0 just before it and
+    read just after; the paged kernel must run n_layers times per decode
+    step, the wire's tokens must equal the in-process run's under the
+    margin rule, the ``done`` frames must count 32, ``http.requests`` 8
+    and ``http.inflight`` 0, every page must be free again, and in (b)
+    the two requests that share a prefix must land on one replica
+    (``router.affinity.hits`` >= 1).  Returns the runs' numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.weights import tree_map
+    from repro_torch.serving import (AsyncEngine, HttpFrontend,
+                                     HttpWorkerClient, Request, Router,
+                                     SamplingParams, throughput_report)
+    cfg = cfg or get_config("qwen3-1.7b")
+    L, V = cfg.n_layers, cfg.vocab_size
+    model = build_model(cfg)
+    wgen = torch.Generator(device=dev)
+    wgen.manual_seed(0)
+    params = model.init(wgen)               # phase 5's and 10's weights
+    prompts = serve_prompts(np, V)
+    n = len(prompts)
+    kw = dict(max_len=1024, max_running=8, page_size=16, prefill_chunk=128,
+              seed=0, device=dev)
+    out = {}
+
+    def p50(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    # -- the in-process run --------------------------------------------
+    eng = AsyncEngine(model, params, **kw)
+    try:
+        warm_up(torch, eng, V)
+        _, ph0 = engine_counts(eng)
+        torch.cuda.reset_peak_memory_stats()
+        handles = [eng.submit(Request(
+            uid=i, prompt=p, sampling=SamplingParams(
+                max_new_tokens=HTTP_TOKENS))) for i, p in enumerate(prompts)]
+        comps = [eng.result(h, timeout=600) for h in handles]
+        idle(torch, eng)
+        _, ph1 = engine_counts(eng)
+    finally:
+        eng.shutdown()
+    want = [c.tokens for c in comps]
+    rep = throughput_report(comps, prefill_s=ph1["prefill"] - ph0["prefill"],
+                            decode_s=ph1["decode"] - ph0["decode"])
+    out["in_process"] = {
+        "ttft_p50_ms": p50([c.t_first - c.t0 for c in comps]) * 1e3,
+        "decode_tok_per_s": rep["decode_tok_per_s"],
+        "wall_s": max(c.t1 for c in comps) - min(c.t0 for c in comps),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del eng, comps, handles
+    gc.collect()                    # the stepper thread's cycle holds it
+    torch.cuda.empty_cache()
+
+    def run_http(host, port, engines, label):
+        before = [engine_counts(e) for e in engines]
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0                 # count this path only
+        res = http_clients_apart(host, port, prompts, HTTP_TOKENS)
+        wall = max(r[3] for r in res)       # the clients start together
+        idle(torch, *engines)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        after = [engine_counts(e) for e in engines]
+        check_streams(res, HTTP_TOKENS, V, label)
+        steps = {k: sum(int(a[0][k] - b[0][k]) for a, b in zip(after, before))
+                 for k in ("prefill", "decode", "verify")}
+        decode_s = [a[1]["decode"] - b[1]["decode"]
+                    for a, b in zip(after, before)]
+        paged = launches["paged_decode_attention"]
+        if steps["decode"] <= 0 or paged != L * steps["decode"]:
+            fail(f"{label}: paged launches {paged} != {L} x "
+                 f"{steps['decode']} decode steps")
+        for name in ("q4_gemm", "decode_attention", "rglru_scan"):
+            if launches[name]:
+                fail(f"{label}: bf16 serving launched {name}")
+        if steps["verify"]:
+            fail(f"{label}: {steps['verify']} verify steps at spec_decode 0")
+        agree, total = margin_rule(
+            torch, model, params, prompts, [r[0] for r in res], want, "fp32",
+            LOGIT_TOL, f"[http] {label}", "HTTP", "in-process", dev)
+        run = {"ttft_p50_ms": p50([r[2] for r in res]) * 1e3,
+               "ttft_max_ms": max(r[2] for r in res) * 1e3,
+               # the front frontend's own clock, from its submit to the
+               # first token: the wire's share is the difference
+               "server_ttft_p50_ms": p50([r[1]["ttft_ms"] for r in res]),
+               "wall_s": wall, "launches": launches, "decode_s": decode_s,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"[http] {label}: {n} streaming clients x {HTTP_TOKENS} "
+              f"tokens; {steps['prefill']} prefill chunks, "
+              f"{steps['decode']} decode steps; paged launches {paged} = "
+              f"{L} x {steps['decode']}; tokens agree with the in-process "
+              f"run on {agree}/{total} (up to each request's first "
+              f"difference)")
+        return run
+
+    def check_pages(e, free, label):
+        pool = e.core.pool
+        if pool.n_live() or pool.n_free() != free:
+            fail(f"{label}: {pool.n_live()} pages still held, "
+                 f"{pool.n_free()} free after the run, {free} before")
+
+    def check_frontend(fe, label, n_req):
+        reg = fe.registry
+        if reg.get("http.requests").value() != n_req:
+            fail(f"{label}: http.requests {reg.get('http.requests').value()}"
+                 f" != {n_req}")
+        if reg.get("http.inflight").value() != 0:
+            fail(f"{label}: http.inflight {reg.get('http.inflight').value()}"
+                 " after the run")
+        for name in ("http.failed", "http.shed", "http.client_disconnects"):
+            if reg.get(name).value():
+                fail(f"{label}: {name} {reg.get(name).value()}")
+
+    eng1 = AsyncEngine(model, params, **kw)
+    eng2 = fe1 = fe2 = router = front = None
+    try:
+        warm_up(torch, eng1, V)
+        free1 = eng1.core.pool.n_free()
+        fe1 = HttpFrontend(eng1).start()
+        # -- 17a. one frontend over the engine ---------------------------
+        a = run_http(fe1.host, fe1.port, [eng1], "17a one frontend")
+        check_frontend(fe1, "17a", n)
+        check_pages(eng1, free1, "17a")
+        a["decode_tok_per_s"] = n * HTTP_TOKENS / a["decode_s"][0]
+        out["a"] = a
+        # -- 17b. two replicas behind the router -------------------------
+        eng2 = AsyncEngine(model, tree_map(torch.clone, params), **kw)
+        warm_up(torch, eng2, V)
+        free2 = eng2.core.pool.n_free()
+        fe2 = HttpFrontend(eng2).start()
+        router = Router({0: HttpWorkerClient(fe1.host, fe1.port),
+                         1: HttpWorkerClient(fe2.host, fe2.port)},
+                        page_size=16)
+        front = HttpFrontend(router).start()
+        b = run_http(front.host, front.port, [eng1, eng2],
+                     "17b router over two replicas")
+        check_frontend(front, "17b front", n)
+        rreg = router.registry
+        per = [int(rreg.get("router.requests").value(replica=r))
+               for r in (0, 1)]
+        hits = rreg.get("router.affinity.hits").value()
+        keyed = rreg.get("router.affinity.keyed").value()
+        if hits < 1 or keyed != n:
+            fail(f"17b: router.affinity.hits {hits}, keyed {keyed}: the two "
+                 "requests sharing a prefix did not land on one replica")
+        for e, free in ((eng1, free1), (eng2, free2)):
+            check_pages(e, free, "17b")
+        check_frontend(fe2, "17b replica 1", per[1])
+        check_frontend(fe1, "17b replica 0", n + per[0])
+        b["requests_per_replica"] = per
+        b["affinity_hits"] = hits
+        b["decode_tok_per_s_per_replica"] = [
+            r_ * HTTP_TOKENS / s_ if s_ > 0 else 0.0
+            for r_, s_ in zip(per, b["decode_s"])]
+        b["tok_per_s_over_wall"] = n * HTTP_TOKENS / b["wall_s"]
+        out["b"] = b
+    finally:
+        for fe_ in (front, fe1, fe2):
+            if fe_ is not None:
+                fe_.close()
+        if router is not None:
+            router.shutdown()
+        for e in (eng1, eng2):
+            if e is not None:
+                e.shutdown()
+    del eng1, eng2, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ip, a, b = out["in_process"], out["a"], out["b"]
+    print(f"[http] in-process: TTFT p50 {ip['ttft_p50_ms']:.1f} ms, decode "
+          f"{ip['decode_tok_per_s']:.1f} tok/s, wall {ip['wall_s']:.3f} s, "
+          f"peak memory {ip['peak_gib']:.2f} GiB — {card}")
+    print(f"[http] 17a over HTTP: TTFT p50 {a['ttft_p50_ms']:.1f} ms (max "
+          f"{a['ttft_max_ms']:.1f}; {a['server_ttft_p50_ms']:.1f} ms on the "
+          f"frontend's clock), decode {a['decode_tok_per_s']:.1f} "
+          f"tok/s, wall {a['wall_s']:.3f} s, peak memory "
+          f"{a['peak_gib']:.2f} GiB — {card}")
+    print(f"[http] 17b router, two replicas: requests {b['requests_per_replica']}"
+          f", affinity hits {b['affinity_hits']}; TTFT p50 "
+          f"{b['ttft_p50_ms']:.1f} ms (max {b['ttft_max_ms']:.1f}; "
+          f"{b['server_ttft_p50_ms']:.1f} ms on the front frontend's "
+          f"clock), decode "
+          f"{[round(x, 1) for x in b['decode_tok_per_s_per_replica']]} "
+          f"tok/s per replica, {b['tok_per_s_over_wall']:.1f} tok/s over the "
+          f"wall {b['wall_s']:.3f} s, peak memory {b['peak_gib']:.2f} GiB "
+          f"(one process, both replicas) — {card}", flush=True)
+    return out
+
+
+def children(pid):
+    """Pids whose parent is ``pid`` (``/proc``)."""
+    kids = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            kids.append(int(d.name))
+    return kids
+
+
+def wait_for(cond, seconds, what, log=None):
+    deadline = time.perf_counter() + seconds
+    while not cond():
+        if time.perf_counter() > deadline:
+            fail(f"{what} within {seconds} s"
+                 + (f"; log tail: {log.read_text()[-3000:]}" if log else ""))
+        time.sleep(0.1)
+
+
+def fleet_cli_phase(card, extra=()):
+    """Phase 17c: ``python -m repro_torch.launch.serve --arch qwen3-1.7b
+    --engine async --http --replicas 2 --max-respawns 1 --quant q4
+    --kv-dtype int8 --port 0 --port-file F``: a front door over two
+    reduced workers on the card.  Streams 4 requests, reads each
+    worker's own ``/metrics.json`` (decode steps, Q4_0 forward calls,
+    int8 pages), SIGKILLs one worker, waits for the respawn and the
+    router's readmission, streams 2 more, then SIGTERMs the front door:
+    it must exit 0 and leave no worker behind."""
+    import signal
+    out_dir = ROOT / "build" / "chip_smoke_fleet"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log, port_file = out_dir / "serve.log", out_dir / "port"
+    port_file.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    with open(log, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "qwen3-1.7b", "--engine", "async", "--http", "--replicas", "2",
+             "--max-respawns", "1", "--quant", "q4", "--kv-dtype", "int8",
+             "--port", "0", "--port-file", str(port_file), *extra],
+            cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    seen = set()
+    try:
+        wait_for(lambda: proc.poll() is not None or (
+            port_file.exists() and port_file.read_text()), 300,
+            "the front door did not bind", log)
+        if proc.poll() is not None:
+            fail(f"the front door exited {proc.returncode}: "
+                 f"{log.read_text()[-3000:]}")
+        t_up = time.perf_counter() - t0
+        port = int(port_file.read_text())
+        workers = {}
+        for ln in log.read_text().splitlines():
+            if ln.strip().startswith("worker "):
+                rid, rest = ln.strip()[7:].split(":", 1)
+                addr, pid = rest.strip().split(" pid ")
+                workers[int(rid)] = (int(addr.rsplit(":", 1)[1]), int(pid))
+        seen.update(pid for _, pid in workers.values())
+        if sorted(workers) != [0, 1]:
+            fail(f"17c: workers {workers}: {log.read_text()[-2000:]}")
+        prompts = ["the scheduler binds each request to a page of the pool",
+                   "the scheduler binds each request to a slot, then decodes",
+                   "a numa node holds the kv cache", "one thread gathers"]
+        res = http_clients("127.0.0.1", port, prompts, 16)
+        check_streams(res, 16, REDUCED_VOCAB, "17c")
+        served = {}
+        for rid, (wport, pid) in sorted(workers.items()):
+            doc = http_json("127.0.0.1", wport, "/metrics.json")
+            served[rid] = {
+                "requests": snap_value(doc, "counters", "http.requests"),
+                "decode_steps": snap_value(doc, "histograms",
+                                           "runner.decode.dispatch_ms"),
+                "q4_forward_calls": snap_value(
+                    doc, "counters", "runner.quant.q4_dispatch"),
+                "int8_page_bytes": snap_value(
+                    doc, "gauges", "kv_pool.page_bytes", kv_dtype="int8")}
+        for rid, st in served.items():
+            if st["requests"] and not (st["decode_steps"] > 0
+                                       and st["q4_forward_calls"] > 0
+                                       and st["int8_page_bytes"] > 0):
+                fail(f"17c: worker {rid} served {st} (no decode on int8 "
+                     "pages or no Q4_0 forward call)")
+        if sum(st["requests"] for st in served.values()) != len(prompts):
+            fail(f"17c: the workers count {served} requests, not "
+                 f"{len(prompts)}")
+        # SIGKILL one worker; the supervisor respawns it and the router
+        # readmits it
+        victim_pid = workers[0][1]
+        os.kill(victim_pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+
+        def healed():
+            doc = http_json("127.0.0.1", port, "/metrics.json")
+            return (snap_value(doc, "counters", "router.readmissions") == 1
+                    and http_json("127.0.0.1", port, "/healthz")["live"] == 2)
+        wait_for(healed, 300, "17c: the fleet did not heal", log)
+        t_heal = time.perf_counter() - t_kill
+        kids = children(proc.pid)
+        seen.update(kids)
+        if victim_pid in kids or len(kids) != 2:
+            fail(f"17c: workers after the respawn {kids} (killed "
+                 f"{victim_pid})")
+        res2 = http_clients("127.0.0.1", port, prompts[:2], 16)
+        check_streams(res2, 16, REDUCED_VOCAB, "17c after the respawn")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for pid in seen:                    # stop every process we started
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    left = [p for p in seen if Path(f"/proc/{p}").exists()]
+    if rc != 0 or "http serving stopped" not in log.read_text():
+        fail(f"17c: the front door exited {rc}: {log.read_text()[-3000:]}")
+    if left:
+        fail(f"17c: workers {left} outlived the front door")
+    ttft = sorted(r[2] for r in res)
+    print(f"[fleet] --http --replicas 2 --quant q4 --kv-dtype int8 on the "
+          f"card: front door up in {t_up:.1f} s; 4 streams x 16 tokens, TTFT "
+          f"p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms; workers {served}; "
+          f"SIGKILL of pid {victim_pid} healed in {t_heal:.1f} s, 2 more "
+          f"streams served; SIGTERM: exit 0, no worker left — {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -1618,13 +2134,8 @@ def main() -> int:
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {n_params / 1e9:.3f} B params in {cfg.dtype} "
           f"({time.perf_counter() - t0:.1f} s to draw)")
-    rng = np.random.default_rng(0)
     V = cfg.vocab_size
-    prefix = rng.integers(0, V, 256).tolist()
-    lens_p = [128, 200, 256 + 64, 256 + 160, 384, 448, 500, 512]
-    prompts = [rng.integers(0, V, n).tolist() for n in lens_p]
-    prompts[2] = prefix + prompts[2][256:]
-    prompts[3] = prefix + prompts[3][256:]
+    prompts = serve_prompts(np, V)
     eng = ContinuousServingEngine(model, params, max_len=1024, max_running=8,
                                   page_size=16, prefill_chunk=128, seed=0,
                                   device="cuda")
@@ -1856,6 +2367,15 @@ def main() -> int:
     mlp = ("w_gate", "w_up", "w_down")
 
     t_da, t_da_p, t_da_l, b_da, b_da_by = da_times[(4, 544)]
+
+    # -- 17. the HTTP front end, the router and the worker fleet ---------
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(t_start, "phase 17a/b, HTTP serving at full width")
+    http_runs = http_phase(torch, np, kernels, card)
+    stamp(t_start, "phase 17c, the fleet CLI on the card")
+    fleet_cli_phase(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     paged_src = "src/repro_torch/csrc/paged_decode_attention.cu"
     print(json.dumps({"kernels": [{
@@ -1875,6 +2395,10 @@ def main() -> int:
         "launches_async_spec": spec["bf16"]["async"][SPEC_K]["launches"][
             "paged_decode_attention"],
         "verify_step_device_ms_per_call": spec["bf16"]["paged_verify"],
+        "launches_http_one_frontend": http_runs["a"]["launches"][
+            "paged_decode_attention"],
+        "launches_http_router_two_replicas": http_runs["b"]["launches"][
+            "paged_decode_attention"],
     }, {
         "name": "paged_decode_attention_int8",
         "route": "cuda",

@@ -30,12 +30,24 @@ int8`` (int8 KV pages with per-row scales).  Observability:
 a metrics line while the async engine serves.  The bucket engine
 refuses these flags, as the reference's does.
 
+Network serving: ``--http`` (async engine) serves ``/v1/completions``
+(SSE streaming) + ``/healthz`` + ``/metrics`` instead of running the
+batch demo.  ``--replicas 0`` (default) serves the in-process
+``AsyncEngine`` (``repro_torch.serving.http``); ``--replicas N`` spawns
+N ``repro_torch.serving.worker`` subprocesses under a supervisor
+(``--max-respawns`` restarts each dead one) and routes across them with
+prefix-affinity placement and a per-replica circuit breaker
+(``repro_torch.serving.router``, ``--breaker-threshold``); the workers
+get this command's ``--device``, ``--params`` and engine flags.
+``--max-inflight`` / ``--max-queue-depth`` shed excess load with 429.
+``--port 0`` picks a free port; ``--port-file PATH`` writes the bound
+port for scripts.  SIGTERM or SIGINT stops the server (and the fleet).
+
 It runs on the GPU (``--device cuda``, the default) and raises when no
 GPU is present; ``--device cpu`` runs it on the CPU.  ``--arch tiny`` is
 the benchmark suite's bench-tiny model.  Warm-up training is not ported
-yet, so ``--warmup-steps`` must stay 0; the HTTP front end
-(``--http``, ``--replicas``) and tensor-parallel serving
-(``--tp-shards``) are not ported either.
+yet, so ``--warmup-steps`` must stay 0; tensor-parallel serving
+(``--tp-shards``) is not ported either.
 
 Examples:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
@@ -46,10 +58,11 @@ Examples:
         --quant q4 --kv-dtype int8
     python -m repro_torch.launch.serve --arch gemma3-1b --engine continuous \\
         --max-running 4 --page-size 16 --prefill-chunk 8 --device cpu
+    python -m repro_torch.launch.serve --arch tiny --engine async --http \\
+        --replicas 2 --port 8080
 """
 
 import argparse
-import dataclasses
 import sys
 
 
@@ -83,6 +96,76 @@ def stream_interactive(eng, handle, write, *, decode=None,
         return "cancelled"
     write("\n")
     return "finished"
+
+
+def _serve_http(fe, *, port_file=None, supervisor=None) -> int:
+    """Run a started frontend until SIGTERM/SIGINT, then drain the
+    backend (the engine's stepper is joined) and, behind a router, the
+    worker fleet."""
+    import signal
+    import threading
+
+    from ..serving import faults
+    faults.load_env()       # REPRO_FAULTS chaos harness (no-op unset)
+    if port_file:
+        with open(port_file, "w") as f:
+            f.write(str(fe.port))
+    print(f"serving http on {fe.url} "
+          "(/v1/completions /healthz /metrics)", flush=True)
+    stop = threading.Event()
+    for s in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(s, lambda *_: stop.set())
+    stop.wait()
+    fe.close(shutdown_backend=True)
+    if supervisor is not None:
+        supervisor.shutdown()
+    print("http serving stopped", flush=True)
+    return 0
+
+
+def _serve_replicated(args) -> int:
+    """``--http --replicas N``: the front-door process holds only the
+    supervisor + router + frontend — no model is built here; each worker
+    subprocess builds its own engine, page pool and CUDA context."""
+    from ..data.tokenizer import ByteTokenizer
+    from ..serving.http import HttpFrontend
+    from ..serving.router import Router
+    from ..serving.supervisor import Supervisor
+    worker_args = ["--arch", args.arch, "--device", args.device,
+                   "--max-running", str(args.max_running), "--page-size",
+                   str(args.page_size), "--seed", "0"]
+    if args.params:
+        worker_args += ["--params", args.params]
+    if args.n_pages is not None:
+        worker_args += ["--n-pages", str(args.n_pages)]
+    if args.prefill_chunk is not None:
+        worker_args += ["--prefill-chunk", str(args.prefill_chunk)]
+    if args.no_prefix_cache:
+        worker_args += ["--no-prefix-cache"]
+    if args.quant != "none":
+        worker_args += ["--quant", args.quant]
+    if args.kv_dtype != "fp32":
+        worker_args += ["--kv-dtype", args.kv_dtype]
+    if args.spec_decode:
+        worker_args += ["--spec-decode", str(args.spec_decode)]
+    sup = Supervisor(args.replicas, worker_args, host=args.host,
+                     max_respawns=args.max_respawns)
+    print(f"starting {args.replicas} engine workers "
+          f"(--arch {args.arch} --device {args.device}) ...", flush=True)
+    clients = sup.start()
+    router = Router(clients, page_size=args.page_size,
+                    breaker_threshold=args.breaker_threshold)
+    # the self-healing loop: death drains the replica from the ring; a
+    # successful respawn re-admits it
+    sup.on_death = lambda rid, rc: router.mark_dead(rid)
+    sup.on_respawn = lambda rid, client: router.readmit(rid, client)
+    for rid, c in sorted(clients.items()):
+        print(f"  worker {rid}: {c.describe()} pid {c.proc.pid}",
+              flush=True)
+    fe = HttpFrontend(router, tokenizer=ByteTokenizer(), host=args.host,
+                      port=args.port, max_inflight=args.max_inflight,
+                      max_queue_depth=args.max_queue_depth).start()
+    return _serve_http(fe, port_file=args.port_file, supervisor=sup)
 
 
 def main(argv=None) -> int:
@@ -151,6 +234,34 @@ def main(argv=None) -> int:
                     metavar="SECS",
                     help="async engine: print a one-line metrics "
                          "summary every SECS seconds while serving")
+    ap.add_argument("--http", action="store_true",
+                    help="serve /v1/completions + /healthz + /metrics "
+                         "over HTTP instead of the batch demo "
+                         "(async engine)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="--http: bind address")
+    ap.add_argument("--port", type=int, default=0,
+                    help="--http: bind port (0 picks a free one)")
+    ap.add_argument("--port-file", metavar="PATH", default=None,
+                    help="--http: write the bound port here (scripts)")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="--http: engine-worker subprocesses behind a "
+                         "prefix-affinity router (0 = serve the "
+                         "in-process engine)")
+    ap.add_argument("--max-respawns", type=int, default=2,
+                    help="--replicas: restarts the supervisor grants "
+                         "each dead worker before it stays dead "
+                         "(0 disables self-healing)")
+    ap.add_argument("--max-inflight", type=int, default=None,
+                    help="--http: admission cap — requests in flight "
+                         "at the frontend; excess is shed with 429 + "
+                         "Retry-After")
+    ap.add_argument("--max-queue-depth", type=int, default=None,
+                    help="--http: shed with 429 while the scheduler "
+                         "queue is this deep (in-process engine only)")
+    ap.add_argument("--breaker-threshold", type=int, default=3,
+                    help="--replicas: consecutive worker failures that "
+                         "open the router's circuit breaker")
     args = ap.parse_args(argv)
     if args.engine == "bucket" and (args.metrics_json or args.trace
                                     or args.stats_every):
@@ -167,43 +278,42 @@ def main(argv=None) -> int:
         ap.error("--spec-decode must be >= 0")
     if args.warmup_steps:
         ap.error("--warmup-steps: training is not ported yet; use 0")
+    if args.replicas and not args.http:
+        ap.error("--replicas needs --http")
+    if args.max_respawns < 0:
+        ap.error("--max-respawns must be >= 0")
+    if args.http:
+        if args.engine != "async":
+            ap.error("--http serves through the async engine; add "
+                     "--engine async")
+        if args.interactive:
+            ap.error("--http and --interactive are exclusive")
+        if args.replicas:
+            return _serve_replicated(args)
 
     import time
 
     import torch
 
-    from ..configs import BENCH_TINY, get_config, list_archs
+    from ..configs import list_archs
     from ..data.tokenizer import ByteTokenizer
-    from ..models import build_model, reduced_config
-    from ..models.weights import (load_params_npz,
-                                  tree_leaves_with_path)
     from ..quant import QuantPolicy
     from ..serving import (AsyncEngine, ContinuousServingEngine, Request,
                            ServingEngine, throughput_report)
     from ..serving.runner import resolve_device
     from ..serving.sampler import SamplingParams
+    from ..serving.worker import build_served
 
-    device = resolve_device(args.device)
-    if args.arch == "tiny":
-        cfg = BENCH_TINY
-    elif args.arch not in list_archs():
+    if args.arch != "tiny" and args.arch not in list_archs():
         ap.error(f"unknown arch; choose 'tiny' or one of {list_archs()}")
-    else:
-        cfg = reduced_config(get_config(args.arch))
-        cfg = dataclasses.replace(cfg, dtype=torch.float32,
-                                  vocab_size=max(cfg.vocab_size, 259))
-    model = build_model(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = model.init(gen)
-    if args.params:
-        want = {p: tuple(t.shape) for p, t in tree_leaves_with_path(params)}
-        params = load_params_npz(args.params, device)
-        got = {p: tuple(t.shape) for p, t in tree_leaves_with_path(params)}
-        if got != want:
-            bad = sorted(set(got.items()) ^ set(want.items()), key=str)[:3]
-            ap.error(f"--params {args.params} does not fit arch {cfg.name} "
-                     f"(leaves that differ, as (path, shape): {bad})")
+    device = resolve_device(args.device)
+    try:
+        model, params = build_served(args.arch, device,
+                                     params_path=args.params)
+    except ValueError as e:
+        ap.error(f"--params {args.params} does not fit arch {args.arch} "
+                 f"({e})")
+    cfg = model.cfg
     tok = ByteTokenizer()
     print(f"arch={cfg.name} (reduced, {cfg.param_count() / 1e6:.1f}M) "
           f"on {device}"
@@ -238,8 +348,16 @@ def main(argv=None) -> int:
     if args.engine == "async":
         eng = AsyncEngine(
             model, params,
-            max_len=max(max_len, 256 + args.max_new) if args.interactive
-            else max_len, **paged_kw)
+            max_len=max(max_len, 256 + args.max_new)
+            if (args.interactive or args.http) else max_len, **paged_kw)
+        if args.http:        # --replicas 0: in-process engine over HTTP
+            from ..serving.http import HttpFrontend
+            fe = HttpFrontend(eng, tokenizer=tok, host=args.host,
+                              port=args.port,
+                              max_inflight=args.max_inflight,
+                              max_queue_depth=args.max_queue_depth
+                              ).start()
+            return _serve_http(fe, port_file=args.port_file)
         if args.interactive:
             print("interactive async demo — one prompt per line, "
                   "empty line or EOF quits")

@@ -16,8 +16,10 @@ A tree the reference has already quantized (``{"q4_packed": uint8,
 
 :func:`save_params_npz` / :func:`load_params_npz` carry a tree through
 an ``.npz`` file, one array per leaf named by its path: how the serve
-CLI (``--params``) serves weights that were drawn elsewhere, such as
-the reference's ``Model.init(PRNGKey(0))``.
+CLI and the engine worker (``--params``, through
+:func:`load_params_like`, which checks the file against the model's own
+tree) serve weights that were drawn elsewhere, such as the reference's
+``Model.init(PRNGKey(0))``.
 """
 
 from __future__ import annotations
@@ -154,3 +156,16 @@ def load_params_npz(path: str, device: Any = "cuda") -> Any:
                 node = node.setdefault(part, {})
             node[leaf] = t.to(device)
     return _listify(root)
+
+
+def load_params_like(path: str, like: Any, device: Any = "cuda") -> Any:
+    """:func:`load_params_npz`, checked against the leaf paths and shapes
+    of the tree ``like`` (the model's own ``init``); raises ValueError
+    naming up to three leaves that differ."""
+    want = {p: tuple(t.shape) for p, t in tree_leaves_with_path(like)}
+    params = load_params_npz(path, device)
+    got = {p: tuple(t.shape) for p, t in tree_leaves_with_path(params)}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()), key=str)[:3]
+        raise ValueError(f"leaves that differ, as (path, shape): {bad}")
+    return params

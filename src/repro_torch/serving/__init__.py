@@ -22,8 +22,18 @@ What this slice of the port has (counterparts of ``repro.serving``):
 
 Both paged engines take ``spec_decode=k`` (prompt-lookup drafts checked
 by one batched verify forward) and ``quant=`` (Q4_0 weights, int8 KV
-pages).  Not ported yet: the HTTP front end, router and worker fleet,
-and tensor-parallel serving.
+pages).
+
+The network edge (``launch/serve.py --http``):
+:class:`~repro_torch.serving.http.HttpFrontend` serves
+``/v1/completions`` (SSE streaming) + ``/healthz`` + ``/metrics`` over
+any engine-like backend, and :class:`~repro_torch.serving.router.Router`
+is such a backend fanning out to N worker subprocesses
+(``repro_torch.serving.worker``, spawned by
+:class:`~repro_torch.serving.supervisor.Supervisor`; ``--replicas N``)
+with prefix-affinity placement, a circuit breaker, deadline-aware
+retries and worker-death failover.  Not ported yet: tensor-parallel
+serving.
 """
 
 from . import faults
@@ -35,19 +45,26 @@ from .core import (Clock, EngineCore, MonotonicClock, StepResult,
                    VirtualClock)
 from .engine import (PRIORITIES, Completion, Request, ServingEngine,
                      throughput_report)
+from .http import HttpFrontend, Overloaded
 from .kv_pool import (KVCachePool, KVPoolConfig, PrefixCache, PrefixMatch,
                       prefix_chain_key)
+from .router import (AffinityRing, HttpWorkerClient, NoReplicasError,
+                     Router, RouterError, RouterHandle, WorkerDiedError)
 from .runner import BucketRunner, ModelRunner
 from .sampler import SamplingParams, sample, sample_grouped
 from .scheduler import ContinuousScheduler, Schedule, Sequence
+from .supervisor import Supervisor, WorkerStartupError
 
 __all__ = [
-    "AsyncEngine", "AsyncEngineError", "BucketRunner", "CancelledError",
-    "Clock", "Completion", "ContinuousScheduler", "ContinuousServingEngine",
-    "DeadlineExceededError", "EngineCore", "KVCachePool", "KVPoolConfig",
-    "ModelRunner", "MonotonicClock", "PRIORITIES", "PollResult",
-    "PrefixCache", "PrefixMatch", "Request", "RequestHandle",
-    "RequestState", "SamplingParams", "Schedule", "Sequence",
-    "ServingEngine", "StepResult", "VirtualClock", "faults",
-    "prefix_chain_key", "sample", "sample_grouped", "throughput_report",
+    "AffinityRing", "AsyncEngine", "AsyncEngineError", "BucketRunner",
+    "CancelledError", "Clock", "Completion", "ContinuousScheduler",
+    "ContinuousServingEngine", "DeadlineExceededError", "EngineCore",
+    "HttpFrontend", "HttpWorkerClient", "KVCachePool", "KVPoolConfig",
+    "ModelRunner", "MonotonicClock", "NoReplicasError", "Overloaded",
+    "PRIORITIES", "PollResult", "PrefixCache", "PrefixMatch", "Request",
+    "RequestHandle", "RequestState", "Router", "RouterError",
+    "RouterHandle", "SamplingParams", "Schedule", "Sequence",
+    "ServingEngine", "StepResult", "Supervisor", "VirtualClock",
+    "WorkerDiedError", "WorkerStartupError", "faults", "prefix_chain_key",
+    "sample", "sample_grouped", "throughput_report",
 ]

@@ -80,13 +80,36 @@ def test_bucket_engine_refuses_paged_flags(flags, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--http"], ["--replicas", "2"], ["--tp-shards", "2"],
+    ["--http", "--interactive"], ["--replicas", "2"], ["--tp-shards", "2"],
     ["--warmup-steps", "5"], ["--spec-decode", "-1"]])
 def test_unported_and_bad_flags_are_refused(flags):
     with pytest.raises(SystemExit) as ei:
         port_main(["--arch", ARCH, "--device", "cpu", "--engine", "async"]
                   + flags)
     assert ei.value.code == 2
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "async", "--replicas", "2"],
+    ["--engine", "continuous", "--http"],
+    ["--engine", "bucket", "--http", "--replicas", "2"],
+    ["--engine", "async", "--http", "--interactive"],
+    ["--engine", "async", "--http", "--replicas", "2", "--max-respawns",
+     "-1"]])
+def test_http_flag_errors_match_the_reference(flags, capsys, monkeypatch):
+    """The HTTP flags' argument errors are the reference CLI's, word for
+    word (both exit 2 before building anything)."""
+    from repro.launch.serve import main as ref_main
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", ARCH] + flags)
+    with pytest.raises(SystemExit) as ei:
+        ref_main()
+    assert ei.value.code == 2
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(SystemExit) as ei:
+        port_main(["--arch", ARCH, "--device", "cpu"] + flags)
+    assert ei.value.code == 2
+    got = capsys.readouterr().err.strip().splitlines()[-1]
+    assert got == want and "error: --" in got
 
 
 def test_params_of_another_arch_are_refused(params_npz, capsys):
@@ -137,3 +160,67 @@ def test_interactive_cli_streams_each_prompt(params_npz):
     assert len(replies) == 3                      # two prompts, then quit
     assert all(r.endswith("\n") and len(r) > 1 for r in replies[:2])
     assert "request failed" not in out.stdout
+
+
+def test_http_cli_serves_through_replicas_and_stops_clean(params_npz,
+                                                          tmp_path):
+    """``--engine async --http --replicas 2 --device cpu --params X``: the
+    front door forwards the weights and the device to both workers, a
+    completion over HTTP carries the greedy tokens of an in-process
+    engine on the same weights, and SIGTERM stops the front door with
+    exit 0 and no worker left behind."""
+    import http.client
+    import json
+    import signal
+    import time
+
+    from repro_torch.data.tokenizer import ByteTokenizer
+    from repro_torch.serving import AsyncEngine, Request, SamplingParams
+    from repro_torch.serving.worker import build_served
+
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    port_file = tmp_path / "port"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+         "--device", "cpu", "--engine", "async", "--http", "--replicas",
+         "2", "--params", params_npz, "--port", "0", "--port-file",
+         str(port_file)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 240
+        while not (port_file.exists() and port_file.read_text()):
+            assert proc.poll() is None, proc.stdout.read()
+            assert time.time() < deadline, "front door never bound"
+            time.sleep(0.1)
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          int(port_file.read_text()),
+                                          timeout=120)
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": "the scheduler binds",
+                                 "max_tokens": 8}))
+        r = conn.getresponse()
+        assert r.status == 200
+        choice = json.loads(r.read())["choices"][0]
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        assert health["backend"] == "Router" and health["live"] == 2
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out
+    assert "http serving stopped" in out
+    pids = [int(ln.rsplit(" pid ", 1)[1]) for ln in out.splitlines()
+            if ln.strip().startswith("worker ")]
+    assert len(pids) == 2 and not any(
+        os.path.exists(f"/proc/{p}") for p in pids), out
+
+    model, params = build_served(ARCH, "cpu", params_path=params_npz)
+    with AsyncEngine(model, params, max_len=64, device="cpu") as eng:
+        want = eng.result(eng.submit(Request(
+            uid=0, prompt=ByteTokenizer().encode("the scheduler binds"),
+            sampling=SamplingParams(max_new_tokens=8))), timeout=120)
+    assert choice["tokens"] == want.tokens

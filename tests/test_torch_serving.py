@@ -267,6 +267,9 @@ def test_port_imports_without_jax_or_the_reference():
         "from repro_torch.serving import ServingEngine, BucketRunner\n"
         "from repro_torch.serving import AsyncEngine, AsyncEngineError\n"
         "from repro_torch.models.weights import load_params_npz\n"
+        "import repro_torch.serving.http, repro_torch.serving.router\n"
+        "import repro_torch.serving.supervisor, repro_torch.serving.worker\n"
+        "from repro_torch.serving import HttpFrontend, Router, Supervisor\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and (m == 'repro'\n"
         "             or m.startswith(('repro.', 'jax', 'ml_dtypes'))))\n"
