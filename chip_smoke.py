@@ -140,7 +140,44 @@ non-zero if any phase fails, or if no CUDA device is present:
        ``/metrics.json`` showing decode steps on int8 pages and Q4_0
        forward calls, a SIGKILL of one worker healed by a respawn and
        the router's readmission, 2 more streams, then SIGTERM: the front
-       door exits 0 and no worker outlives it.
+       door exits 0 and no worker outlives it;
+18. full-width Phi-3.5-MoE (d_model 4096, 32 / 8 heads x 128, d_ff
+    6400, 16 experts top-2, vocab 32,064, untied embeddings, bf16) at 16
+    of its 32 layers (the full depth does not fit one 80 GB card), at the
+    serve CLI's capacity factor 4.0, weights drawn on the card from a
+    seeded ``torch.Generator`` one expert stack at a time, after every
+    earlier phase's engines and weights are freed:
+    a. ``ContinuousServingEngine`` on phase 5's traffic (8 requests of
+       128-512 tokens, two sharing a 256-token prefix, 128-token chunks,
+       32 greedy tokens each); checks the completions and the prefix
+       cache, paged kernel launches = 16 x decode steps; one decode step
+       with the kernel against the plain attention on a clone of the
+       cache, the plain run routed as the kernel run was (every token
+       whose experts differ between the two runs must sit within
+       ``ROUTE_TOL`` of a tie), logits within 0.125; ``moe_scatter``
+       against ``moe_dense`` at one layer for 128 bf16 rows where nothing
+       drops; prints peak memory, decode tok/s, TTFT, and a profiled
+       decode step's device time, busy share and the expert products'
+       share (``aten::bmm``);
+    b. the same model through ``ServingEngine`` / ``BucketRunner``: four
+       prompts of 256 tokens, ``max_batch=4``, 16 tokens each;
+       contiguous kernel launches = 16 x decode steps, and one ring
+       decode step with the kernel against the plain version on a clone
+       of the ring, routed as in (a);
+    c. the Q4_0 GEMM against its plain version at the model's attention
+       projections, (K, N) = (4096, 4096) and (4096, 1024), M = 8 and
+       128, x in bf16;
+19. full-width, full-depth Mamba-2-370m (48 SSD layers, d_model 1024, 32
+    heads x 64, state 128, chunk 64, vocab 50,280, bf16, weights drawn
+    on the card) through ``ServingEngine``: 8 requests, four prompts of
+    256 tokens and four of 512, 32 greedy tokens each; checks the
+    completions and that none of the port's kernels ran (the SSD path
+    has none: the reference's chunk scan is plain jnp); ``ssd_chunked``
+    against ``ssd_reference`` at one layer's shapes, T = 200 across
+    chunk edges, with and without an initial state (f32, ``SSD_TOL``);
+    the logits of a decode step after a prefill of 511 tokens against
+    the last logits of a prefill of 512 (0.125); prints the device time
+    of a decode step and of a 512-token prefill call, and peak memory.
 
 The build phase prints nvcc's register and spill report for every
 kernel, and the scan's plan and shared memory at its timed shapes.  It
@@ -151,7 +188,9 @@ shape and its device time in a decode step and a prefill chunk, the scan
 entry its four timed shapes with their plans and its device time in the
 profiled prefill call; the paged entries and the Q4_0 entry also their
 launches in phase 10's k=2 run and their device time in a verify step,
-the bf16 paged entry its launches in phases 17a and 17b),
+the bf16 paged entry its launches in phases 17a, 17b and 18a and its
+device time a call in 18a's decode step, the contiguous entry its
+launches in 18b, the Q4_0 entry its error at 18c's shapes),
 and as the last line ``{"ok": true, "device":
 {...}}``.  Nothing
 here imports JAX or the reference package.
@@ -562,13 +601,11 @@ def logit_parity(torch, got, want, tol, what):
         fail(f"{what}: decode parity failed")
 
 
-def kernel_times(torch, run, n):
-    """Device milliseconds and launches per run by kernel name, from
-    torch.profiler over ``n`` calls of ``run()``, each synchronised.  One
-    call before them is the profiler's warm-up, its events dropped: a
-    trace that opens on a busy device can miss its first launches (once,
-    every kernel's count came out ~1 % short)."""
-    from torch.autograd import DeviceType
+def profiled(torch, run, n):
+    """``key_averages()`` of torch.profiler over ``n`` calls of ``run()``,
+    each synchronised.  One call before them is the profiler's warm-up,
+    its events dropped: a trace that opens on a busy device can miss its
+    first launches (once, every kernel's count came out ~1 % short)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=n,
@@ -577,15 +614,62 @@ def kernel_times(torch, run, n):
             run()
             torch.cuda.synchronize()
             prof.step()
-    by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:    # host ops: not device time
-            continue
-        if e.key.startswith("ProfilerStep"):   # the schedule's step marks
-            continue
-        if e.device_time_total > 0:                 # microseconds
-            by_kernel[e.key] = (e.device_time_total / n / 1e3, e.count / n)
+    return prof.key_averages()
+
+
+def port_kernels():
+    """The port's kernel wrappers by name; each adds one to its
+    ``.launches`` where it launches its kernel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import q4_gemm as qg
+    from repro_torch.kernels import rglru_scan as rs
+    return {"paged_decode_attention": da.paged_decode_attention,
+            "q4_gemm": qg.q4_gemm, "decode_attention": da.decode_attention,
+            "rglru_scan": rs.rglru_scan}
+
+
+def kernel_times(torch, run, n):
+    """Device milliseconds and launches per run by kernel name, from
+    :func:`profiled` over ``n`` calls of ``run()``.  Every call launches
+    the same kernels, so the wrappers' own counts over the traced calls
+    must be whole per call: if one is not, a launch really went missing
+    and the script fails.  If they are and the trace's count of some
+    kernel is not, the trace lost events (once, one of 112 paged launches
+    went missing in a q4 + int8 decode step, after the warm-up): it is
+    taken again, up to three traces, each retrace counted on
+    ``kernel_times.retraces`` (in the kernels line), and the last one is
+    returned; the callers' exact launch checks apply to it unchanged."""
+    from torch.autograd import DeviceType
+    wrappers = port_kernels()
+    tries = 3
+    for attempt in range(1, tries + 1):
+        before = {name: fn.launches for name, fn in wrappers.items()}
+        events = profiled(torch, run, n)
+        for name, fn in wrappers.items():          # n + 1: the warm-up too
+            if (fn.launches - before[name]) % (n + 1):
+                fail(f"{name}: {fn.launches - before[name]} launches over "
+                     f"{n + 1} calls that each launch the same kernels")
+        by_kernel, lost = {}, []
+        for e in events:
+            if e.device_type != DeviceType.CUDA:  # host ops: no device time
+                continue
+            if e.key.startswith("ProfilerStep"):  # the schedule's step marks
+                continue
+            if e.device_time_total > 0:               # microseconds
+                by_kernel[e.key] = (e.device_time_total / n / 1e3,
+                                    e.count / n)
+                if e.count % n:
+                    lost.append(e.key)
+        if not lost or attempt == tries:
+            break
+        kernel_times.retraces += 1
+        print(f"[profile] trace {attempt} of {tries}: {len(lost)} kernel(s) "
+              f"with launches not whole per call while the wrappers' counts "
+              f"are (events lost), e.g. {lost[0][:60]}; tracing again")
     return by_kernel
+
+
+kernel_times.retraces = 0
 
 
 def print_top(by_kernel, k=8):
@@ -671,7 +755,7 @@ def paged_profile(by_kernel, n_calls, label, card):
 def time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen, label,
                        card):
     """The paged kernel at the serving path's own inputs: this state's
-    block table and lengths, cycling the 28 layers' pools as one decode
+    block table and lengths, cycling the layers' pools as one decode
     step does (so K/V come from HBM, not L2).  Returns (max error, kernel
     ms, plain ms, SDPA ms, bound ms, bound_by, for int8 pages the bf16
     kernel's ms on the same state dequantized, and the kernel's n_split
@@ -1894,6 +1978,534 @@ def fleet_cli_phase(card, extra=()):
           flush=True)
 
 
+#: Phi-3.5-MoE on the card: full width, 16 of its 32 layers (at full
+#: depth its 41.87 B bf16 parameters, 78.0 GiB, do not fit one 80 GB card,
+#: and Q4_0 leaves the expert stacks dense, as in the reference), at the
+#: capacity factor the serve CLI sets
+MOE_LAYERS = 16
+MOE_CF = 4.0
+#: a routing decision of one decode step that differs between the kernel
+#: run and the plain run must be within rounding of a tie: the plain run's
+#: probabilities of the experts it chose and of those the kernel run chose
+#: differ by less than this (one bf16 ulp of an attention output moves a
+#: full-width router probability by ~1e-3 after 16 layers); the plain run
+#: then takes the kernel run's experts, so its logits are held to LOGIT_TOL
+ROUTE_TOL = 0.02
+#: moe_scatter vs moe_dense at one full-width layer in bf16, nothing
+#: dropped: the same expert products, but at M = capacity against M = T
+#: (other cuBLAS tiles, so another f32 summation order before each bf16
+#: rounding: an expert output may round one ulp apart), and the two gated
+#: outputs combined by a bf16 product and scatter-add in one (three
+#: roundings) and by an einsum over all 16 experts in the other (one):
+#: |scatter - dense| <= MOE_DISPATCH_RTOL * (|dense| + rms(dense)), eight
+#: bf16 ulps (a CPU rehearsal at d_model 128 reached 0.0072)
+MOE_DISPATCH_RTOL = 2.0 ** -5
+#: Mamba-2's chunked SSD vs its sequential oracle in f32 (TF32 off): the
+#: same sums of up to 200 x 128 terms in another association, ~1.3e-6 of
+#: the largest output on the CPU at these shapes;
+#: |chunked - oracle| <= SSD_TOL * max|oracle|
+SSD_TOL = 2e-5
+#: Mamba-2-370m logits, a decode step after a prefill of n tokens against
+#: the last logits of a prefill of n + 1: the decode step is a chunk padded
+#: with zeros, so the two sum the same terms in another order and round
+#: each of 48 layers' outputs to bf16; LOGIT_TOL's rule (0.125, the argmax
+#: equal on every lane whose top-2 margin exceeds it)
+LOGIT_TOL_SSD = 0.125
+
+
+class RoutePin:
+    """Wraps ``repro_torch.models.moe._router`` for one pair of runs of a
+    step: while recording, it keeps each call's expert ids; after
+    :meth:`replay`, each call computes its own probabilities and top-k,
+    counts the tokens whose experts differ from the recorded run's with
+    the probability gap they fell within, and returns the recorded
+    experts with its own renormalised probabilities.  So the kernel run
+    and the plain run of one step route every token to the same experts,
+    and every routing flip is reported with its margin."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.orig = moe_mod, moe_mod._router
+        self.calls, self.replaying, self.i = [], False, 0
+        self.flips, self.max_gap = 0, 0.0
+
+    def __call__(self, params, x2d, k):
+        logits, probs, topv, topi = self.orig(params, x2d, k)
+        if not self.replaying:
+            self.calls.append(topi.clone())
+            return logits, probs, topv, topi
+        want = self.calls[self.i]
+        self.i += 1
+        diff = (topi != want).any(dim=-1)
+        if bool(diff.any()):
+            p = probs[diff]
+            gap = (p.gather(1, topi[diff]) - p.gather(1, want[diff])).abs()
+            self.flips += int(diff.sum())
+            self.max_gap = max(self.max_gap, gap.max().item())
+        topv = probs.gather(1, want)
+        return logits, probs, topv / topv.sum(dim=-1, keepdim=True), want
+
+    def __enter__(self):
+        self.mod._router = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._router = self.orig
+
+    def replay(self):
+        self.replaying, self.i = True, 0
+
+
+def pinned_parity(torch, run_kernel, run_plain, tol, what):
+    """One step with the kernels, then with the plain versions on a clone
+    of its state, the plain run routed as the kernel run was
+    (:class:`RoutePin`): routing flips within ROUTE_TOL, logits within
+    ``tol`` (``logit_parity``).  Returns the number of flips."""
+    from repro_torch.models import moe as moe_mod
+    with RoutePin(moe_mod) as pin:
+        got = run_kernel()
+        pin.replay()
+        want = run_plain()
+    print(f"[parity] {what}: {len(pin.calls)} router calls, {pin.flips} "
+          f"token routings differ between the two runs (largest gap "
+          f"{pin.max_gap:.4f}, tol {ROUTE_TOL}); the plain run takes the "
+          f"kernel run's experts")
+    if pin.flips and not pin.max_gap < ROUTE_TOL:
+        fail(f"{what}: a routing decision differs with a clear margin "
+             f"{pin.max_gap:.4f}")
+    logit_parity(torch, got, want, tol, what)
+    return pin.flips
+
+
+def op_device_ms(torch, run, n, names):
+    """Device ms per call of ``run()`` spent in the kernels of the named
+    aten ops, from :func:`profiled` over ``n`` calls."""
+    from torch.autograd import DeviceType
+    return {e.key: e.device_time_total / n / 1e3
+            for e in profiled(torch, run, n)
+            if e.device_type == DeviceType.CPU and e.key in names}
+
+
+def check_moe_dispatch(torch, params, cfg, gen):
+    """``moe_scatter`` against ``moe_dense`` at layer 0's weights on 128
+    bf16 rows, at the capacity factor E / k, where each expert can take
+    every row and nothing drops.  Returns the max |d|."""
+    from repro_torch.models import moe as moe_mod
+    lp = {k_: v[0] for k_, v in params["layers"]["moe"].items()}
+    T, E, k = 128, cfg.n_experts, cfg.experts_per_token
+    cf = E / k
+    x = torch.randn(T, cfg.d_model, generator=gen, device="cuda").to(
+        cfg.dtype)
+    _, _, _, topi = moe_mod._router(lp, x, k)
+    cap, _, keep = moe_mod.moe_routing(topi, E, cf)
+    if cap < T or not bool(keep.all()):
+        fail(f"moe dispatch check: capacity {cap} drops tokens")
+    got, aux_s = moe_mod.moe_scatter(lp, x, k=k, act=cfg.act,
+                                     capacity_factor=cf)
+    want, aux_d = moe_mod.moe_dense(lp, x, k=k, act=cfg.act)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail("moe_scatter: non-finite output")
+    want = want.float()
+    err = (got.float() - want).abs()
+    rms = want.square().mean().sqrt()
+    if not bool((err <= MOE_DISPATCH_RTOL * (want.abs() + rms)).all()):
+        fail(f"moe_scatter disagrees with moe_dense (max "
+             f"{err.max().item():.3e})")
+    if not math.isclose(aux_s.item(), aux_d.item(), rel_tol=1e-6):
+        fail(f"moe aux loss: scatter {aux_s.item()} dense {aux_d.item()}")
+    print(f"[moe] moe_scatter vs moe_dense, layer 0 of {cfg.name}, {T} "
+          f"{cfg.dtype} rows, capacity {cap} (none dropped): max|d| "
+          f"{err.max().item():.3e} (output rms {rms.item():.3e}; tol "
+          f"{MOE_DISPATCH_RTOL} x (|dense| + rms)); aux loss "
+          f"{aux_s.item():.4f} both")
+    return err.max().item()
+
+
+def moe_phase(torch, np, kernels, card):
+    """Phases 18a-c: full-width Phi-3.5-MoE (16 of 32 layers, bf16,
+    weights drawn on the card from seed 0, one expert stack at a time,
+    ``capacity_factor`` 4.0).  (a) the continuous engine on phase 5's
+    traffic (``serve``: counts set to 0 just before, read just after; the
+    paged kernel n_layers x decode steps), one decode step with the
+    kernel against the plain attention on a clone of the cache under
+    :func:`pinned_parity`, the paged kernel against its plain version on
+    that state's block table and lengths (:func:`time_serving_state`),
+    ``moe_scatter`` against ``moe_dense`` at one layer, a profiled decode
+    step with the expert products' share, and the cost of the router aux
+    loss the serving steps skip; (b) the bucket engine on four prompts of
+    256 tokens, 16 tokens each (counts set to 0 just before, read just
+    after; the contiguous kernel n_layers x decode steps), one ring decode
+    step with the kernel against the plain version on a clone of the
+    ring, and the contiguous kernel against its plain version on each
+    layer's ring; (c) the Q4_0 GEMM
+    against its plain version at the attention projections' shapes, M =
+    8 and 128, x in bf16.  Returns the phase's numbers."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import q4_gemm as qg
+    from repro_torch.kernels import ref
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.weights import tree_leaves_with_path, tree_map
+    from repro_torch.quant import param_bytes, q4_0
+    from repro_torch.serving import (ContinuousServingEngine, Request,
+                                     SamplingParams, ServingEngine,
+                                     throughput_report)
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              n_layers=MOE_LAYERS, capacity_factor=MOE_CF)
+    L, V = cfg.n_layers, cfg.vocab_size
+    out = {}
+    print(f"[moe] allocated before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(0)
+    params = model.init(wgen)
+    torch.cuda.synchronize()
+    out["draw_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["weights_gib"] = param_bytes(params) / 2**30
+    n_params = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    print(f"[moe] {cfg.name}: {L} of 32 layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token}, vocab {V}, capacity factor "
+          f"{cfg.capacity_factor}; {n_params / 1e9:.3f} B params, "
+          f"{out['weights_gib']:.2f} GiB of {cfg.dtype} weights on the card "
+          f"({time.perf_counter() - t0:.1f} s to draw, peak "
+          f"{out['draw_peak_gib']:.2f} GiB while drawing)", flush=True)
+
+    # -- 18a. the continuous engine ------------------------------------
+    prompts = serve_prompts(np, V)
+    eng = ContinuousServingEngine(model, params, max_len=1024, max_running=8,
+                                  page_size=16, prefill_chunk=128, seed=0,
+                                  device="cuda")
+    counts, steps, _ = serve(torch, eng, prompts, cfg, kernels, "moe", card)
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if steps <= 0 or counts["paged_decode_attention"] != L * steps:
+        fail(f"18a: paged launches {counts['paged_decode_attention']} != "
+             f"{L} x {steps} decode steps")
+    for name in ("q4_gemm", "decode_attention", "rglru_scan"):
+        if counts[name]:
+            fail(f"18a: MoE paged serving launched {name} {counts[name]} "
+                 "times")
+    out["launches_paged"] = counts["paged_decode_attention"]
+    out["decode_steps"] = steps
+    print(f"[moe] 18a launches: paged decode attention "
+          f"{counts['paged_decode_attention']} = {L} x {steps} decode steps")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    cache, clone, fed_t, pos, ps = parity_state(torch, np, gen, model, params,
+                                                prompts, "fp32")
+    out["flips_paged"] = pinned_parity(
+        torch,
+        lambda: model.decode_step(params, cache, fed_t, pos, page_size=ps)[0],
+        lambda: model.decode_step(params, clone, fed_t, pos, page_size=ps,
+                                  impl="ref")[0],
+        LOGIT_TOL, "18a Phi-3.5-MoE paged decode logits, kernel vs plain")
+    del clone
+    (out["paged_err"], out["paged_ms"], out["paged_plain_ms"],
+     out["paged_sdpa_ms"], out["paged_bound_ms"], *_) = time_serving_state(
+        torch, F, ref, kernels["paged_decode_attention"], cache, pos, cfg,
+        gen, "18a Phi-3.5-MoE", card)
+    out["dispatch_err"] = check_moe_dispatch(torch, params, cfg, gen)
+    stats = {}
+    by_kernel = profile_step(torch, lambda p_: model.decode_step(
+        params, cache, fed_t, p_, page_size=ps), pos + 1,
+        "full-width Phi-3.5-MoE decode", card, stats=stats)
+    out["paged_ms_per_call"] = paged_profile(by_kernel, L, "MoE decode",
+                                             card)
+    nxt = [pos + 10]                # past the profiled steps' positions
+
+    def one_step():
+        model.decode_step(params, cache, fed_t, nxt[0], page_size=ps)
+        nxt[0] = nxt[0] + 1
+
+    ops = op_device_ms(torch, one_step, 2, ("aten::bmm",))
+    out["step_busy_ms"] = stats["busy_ms"]
+    out["step_wall_ms"] = stats["wall_ms"]
+    out["expert_bmm_ms"] = ops.get("aten::bmm", 0.0)
+    expert_bytes = 3 * L * cfg.n_experts * cfg.d_model * cfg.d_ff * 2
+    out["expert_bound_ms"] = expert_bytes / HBM_BYTES_PER_S * 1e3
+    if out["expert_bmm_ms"] <= 0:
+        fail("18a: no device time in the expert products (aten::bmm)")
+    print(f"[profile] 18a MoE decode step (B=8): device busy "
+          f"{out['step_busy_ms']:.2f} ms of {out['step_wall_ms']:.2f} ms "
+          f"wall ({out['step_busy_ms'] / out['step_wall_ms']:.1%}); expert "
+          f"products (aten::bmm) {out['expert_bmm_ms']:.2f} ms a step "
+          f"({out['expert_bmm_ms'] / out['step_busy_ms']:.1%} of the busy "
+          f"time; their {expert_bytes / 1e9:.1f} GB of weights take "
+          f"{out['expert_bound_ms']:.2f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) — {card}", flush=True)
+    # the router aux loss, which the serving steps skip, at a decode
+    # step's shape: its cost a layer, and a step's worth
+    lp0 = {k_: v[0] for k_, v in params["layers"]["moe"].items()}
+    xs = torch.randn(8, cfg.d_model, generator=gen, device="cuda").to(
+        cfg.dtype)
+    _, probs, _, topi = moe_mod._router(lp0, xs, cfg.experts_per_token)
+    E = cfg.n_experts
+    aux_dev = cuda_ms(torch, lambda i: moe_mod._aux_loss(probs, topi, E), 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        moe_mod._aux_loss(probs, topi, E)
+    torch.cuda.synchronize()
+    aux_wall = (time.perf_counter() - t0) / 200 * 1e3
+    out["aux_step_device_ms"], out["aux_step_wall_ms"] = (L * aux_dev,
+                                                          L * aux_wall)
+    print(f"[moe] router aux loss at a decode step's shape (8 rows, {E} "
+          f"experts), skipped by the serving steps: {aux_dev * 1e3:.1f} us "
+          f"of device time and {aux_wall * 1e3:.1f} us of wall a layer; "
+          f"x {L} layers {L * aux_dev:.3f} ms device "
+          f"({L * aux_dev / out['step_busy_ms']:.1%} of the step's busy "
+          f"time), {L * aux_wall:.3f} ms wall "
+          f"({L * aux_wall / out['step_wall_ms']:.1%} of its wall) — {card}")
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 18b. the bucket engine ----------------------------------------
+    rng = np.random.default_rng(3)
+    bprompts = [rng.integers(0, V, 256).tolist() for _ in range(4)]
+    beng = ServingEngine(model, params, max_len=288, seed=0, device="cuda")
+    calls = {"prefill": 0, "decode": 0}
+    beng.runner.prefill = counted(calls, "prefill", beng.runner.prefill)
+    beng.runner.decode = counted(calls, "decode", beng.runner.decode)
+    beng.generate([Request(uid=100, prompt=bprompts[0][:16],
+                           sampling=SamplingParams(max_new_tokens=2))])
+    reqs = [Request(uid=i, prompt=p,
+                    sampling=SamplingParams(max_new_tokens=16))
+            for i, p in enumerate(bprompts)]
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0                     # count this path only
+    calls.update(prefill=0, decode=0)
+    comps = beng.generate(reqs, max_batch=4)
+    torch.cuda.synchronize()
+    bcounts = {name: fn.launches for name, fn in kernels.items()}
+    for c in comps:
+        if len(c.tokens) != 16 or not all(0 <= t < V for t in c.tokens):
+            fail(f"18b: request {c.uid}: {len(c.tokens)} tokens")
+    if calls["decode"] <= 0 or \
+            bcounts["decode_attention"] != L * calls["decode"]:
+        fail(f"18b: contiguous launches {bcounts['decode_attention']} != "
+             f"{L} x {calls['decode']} decode steps")
+    for name in ("paged_decode_attention", "q4_gemm", "rglru_scan"):
+        if bcounts[name]:
+            fail(f"18b: MoE bucket serving launched {name} {bcounts[name]} "
+                 "times")
+    rep = throughput_report(comps, **beng.last_phase_s)
+    out["launches_contiguous"] = bcounts["decode_attention"]
+    out["bucket_decode_steps"] = calls["decode"]
+    out["bucket_decode_tok_per_s"] = rep["decode_tok_per_s"]
+    print(f"[moe] 18b bucket engine: 4 requests x 16 tokens, "
+          f"{calls['prefill']} prefill call, {calls['decode']} decode steps; "
+          f"contiguous decode attention {bcounts['decode_attention']} = {L} "
+          f"x {calls['decode']}; decode {rep['decode_tok_per_s']:.1f} tok/s "
+          f"— {card}")
+    del beng
+    toks = torch.tensor(bprompts, dtype=torch.long, device="cuda")
+    ring = model.init_cache(4, 288, device="cuda")
+    logits, _ = model.prefill(params, {"tokens": toks}, ring)
+    fed = logits[:, 0].float().argmax(-1, keepdim=True)
+    ring_clone = tree_map(lambda t: t.clone(), ring)
+    out["flips_ring"] = pinned_parity(
+        torch, lambda: model.decode_step(params, ring, fed, 256)[0],
+        lambda: model.decode_step(params, ring_clone, fed, 256,
+                                  impl="ref")[0],
+        LOGIT_TOL, "18b Phi-3.5-MoE ring decode logits, kernel vs plain")
+    sc, windows = ring["layers"]["self"], cfg.layer_windows(0)
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.randn(4, Hkv, cfg.n_heads // Hkv, hd, generator=gen,
+                    device="cuda").to(cfg.dtype)
+    out["ring_err"] = 0.0
+    for i in range(L):
+        kw = dict(kv_positions=sc["pos"][i], q_pos=256, window=windows[i],
+                  softcap=cfg.attn_logit_softcap)
+        got = kernels["decode_attention"](q, sc["k"][i], sc["v"][i], **kw)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, sc["k"][i], sc["v"][i], **kw)
+        out["ring_err"] = max(out["ring_err"], check(
+            torch, got, want, ..., f"18b decode_attention ring layer {i}"))
+    print(f"[kernel] 18b decode_attention on each of the {L} layers' rings "
+          f"(B=4, 288 slots, positions 0-256, {Hkv}/{cfg.n_heads} heads, "
+          f"D={hd}, {cfg.dtype}): max|kernel-plain| {out['ring_err']:.3e}")
+    del ring, ring_clone, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 18c. the Q4_0 GEMM at the attention projections' shapes ---------
+    err = 0.0
+    hd = cfg.resolved_head_dim
+    for K, N in ((cfg.d_model, cfg.n_heads * hd),
+                 (cfg.d_model, cfg.n_kv_heads * hd)):
+        w = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
+        packed, scales = q4_0.quantize(w)
+        for M in (8, 128):
+            x = torch.randn(M, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = qg.q4_gemm(x, packed, scales)
+            torch.cuda.synchronize()
+            want = ref.q4_gemm_ref(x, packed, scales)
+            what = f"18c q4_gemm Phi-3.5-MoE M={M} K={K} N={N} x bf16"
+            e_ = check_q4(torch, got, want, what)
+            err = max(err, e_)
+            print(f"[kernel] {what}: max|kernel-plain| {e_:.3e}")
+    out["q4_err"] = err
+    return out
+
+
+def mamba_phase(torch, np, kernels, card):
+    """Phase 19: full-width, full-depth Mamba-2-370m (bf16, weights drawn
+    on the card from seed 0) through the bucket engine: 8 requests (four
+    prompts of 256 tokens and four of 512), 32 greedy tokens each,
+    ``max_batch=4``, counts set to 0 just before and read just after (no
+    kernel of the port runs on this path); ``ssd_chunked`` against
+    ``ssd_reference`` at one layer's shapes, T = 200 across chunk edges;
+    the logits of a decode step after a prefill of n - 1 tokens against
+    the last logits of a prefill of n; device time of a decode step and
+    of a prefill call.  Returns the phase's numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, ssm
+    from repro_torch.quant import param_bytes
+    from repro_torch.serving import (Request, SamplingParams, ServingEngine,
+                                     throughput_report)
+    cfg, lens = get_config("mamba2-370m"), (256, 512)
+    V = cfg.vocab_size
+    out = {}
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(0)
+    params = model.init(wgen)
+    torch.cuda.synchronize()
+    print(f"[ssd] {cfg.name}: {cfg.n_layers} SSD layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {V}; "
+          f"{param_bytes(params) / 2**30:.3f} GiB of {cfg.dtype} weights "
+          f"({time.perf_counter() - t0:.1f} s to draw)", flush=True)
+
+    # the chunked scan against the sequential oracle at one layer's shapes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    lp = {k_: v[0] for k_, v in params["layers"]["ssd"].items()}
+    H, P, N, T = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, 200
+    x = torch.randn(2, T, H, P, generator=gen, device="cuda")
+    dt = F.softplus(torch.randn(2, T, H, generator=gen, device="cuda")
+                    + lp["dt_bias"])
+    A = -torch.exp(lp["A_log"])
+    Bm = torch.randn(2, T, cfg.ssm_groups, N, generator=gen, device="cuda")
+    Cm = torch.randn(2, T, cfg.ssm_groups, N, generator=gen, device="cuda")
+    s0 = torch.randn(2, H, P, N, generator=gen, device="cuda")
+    err = 0.0
+    for init in (None, s0):
+        y, st = ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
+                                initial_state=init)
+        yr, sr = ssm.ssd_reference(x, dt, A, Bm, Cm, initial_state=init)
+        torch.cuda.synchronize()
+        for got, want, what in ((y, yr, "y"), (st, sr, "final state")):
+            e_ = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not (math.isfinite(e_) and e_ <= SSD_TOL * scale):
+                fail(f"19: ssd_chunked {what} disagrees with ssd_reference "
+                     f"(max {e_:.3e}, max|oracle| {scale:.3e})")
+            err = max(err, e_ / scale)
+            print(f"[ssd] ssd_chunked vs ssd_reference, (2, {T}, {H}, {P}) "
+                  f"state {N}, chunk {cfg.ssm_chunk}, "
+                  f"{'with' if init is not None else 'without'} an initial "
+                  f"state, f32: {what} max|d| {e_:.3e} of max|oracle| "
+                  f"{scale:.3e} (tol {SSD_TOL} x max|oracle|)")
+    out["chunked_rel_err"] = err
+    del x, dt, Bm, Cm, s0, y, yr, st, sr
+
+    eng = ServingEngine(model, params, max_len=max(lens) + 48, seed=0,
+                        device="cuda")
+    calls = {"prefill": 0, "decode": 0}
+    eng.runner.prefill = counted(calls, "prefill", eng.runner.prefill)
+    eng.runner.decode = counted(calls, "decode", eng.runner.decode)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, V, n).tolist() for n in lens for _ in range(4)]
+    eng.generate([Request(uid=100, prompt=prompts[0][:16],
+                          sampling=SamplingParams(max_new_tokens=2))])
+    reqs = [Request(uid=i, prompt=p,
+                    sampling=SamplingParams(max_new_tokens=32))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0                     # count this path only
+    calls.update(prefill=0, decode=0)
+    comps = eng.generate(reqs, max_batch=4)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for c in comps:
+        if len(c.tokens) != 32 or not all(0 <= t < V for t in c.tokens):
+            fail(f"19: request {c.uid}: {len(c.tokens)} tokens")
+    if calls["prefill"] != 2 or calls["decode"] <= 0:
+        fail(f"19: runner calls {calls}: expected 2 prefills and decode "
+             "steps")
+    if any(counts.values()):
+        fail(f"19: the SSD path launched the port's kernels: {counts}")
+    rep = throughput_report(comps, **eng.last_phase_s)
+    ttft = sorted(c.t_first - c.t0 for c in comps)
+    out.update(decode_tok_per_s=rep["decode_tok_per_s"],
+               ttft_p50_ms=ttft[len(ttft) // 2] * 1e3, calls=dict(calls))
+    print(f"[ssd] 19: {len(comps)} requests x 32 tokens in "
+          f"{len(eng._buckets(reqs, 4))} buckets; {calls['prefill']} prefill "
+          f"calls, {calls['decode']} decode steps; decode "
+          f"{rep['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{rep['prefill_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} ms, peak memory "
+          f"{out['serve_peak_gib']:.2f} GiB — {card}", flush=True)
+    del eng
+
+    # a decode step after a prefill of n - 1 tokens against the last
+    # logits of a prefill of n
+    n = max(lens)
+    toks = torch.tensor(prompts[-4:], dtype=torch.long, device="cuda")
+    cache = model.init_cache(4, n + 48, device="cuda")
+    model.prefill(params, {"tokens": toks[:, :n - 1]}, cache)
+    got, _ = model.decode_step(params, cache, toks[:, n - 1:n], n - 1)
+    whole = model.init_cache(4, n + 48, device="cuda")
+    want, _ = model.prefill(params, {"tokens": toks}, whole)
+    logit_parity(torch, got, want, LOGIT_TOL_SSD,
+                 f"19 Mamba-2 decode after a prefill of {n - 1} tokens vs "
+                 f"the last logits of a prefill of {n}")
+    del whole
+    stats = {}
+    profile_step(torch, lambda p_: model.decode_step(
+        params, cache, toks[:, :1], p_), n, "full-width Mamba-2-370m decode",
+        card, batch=4, stats=stats)
+    out["step_busy_ms"] = stats["busy_ms"]
+    out["step_wall_ms"] = stats["wall_ms"]
+    pcache = model.init_cache(4, n + 48, device="cuda")
+
+    def run():
+        model.prefill(params, {"tokens": toks}, pcache)
+
+    run()
+    torch.cuda.synchronize()
+    by_prefill = kernel_times(torch, run, 2)
+    out["prefill_busy_ms"] = sum(ms for ms, _ in by_prefill.values())
+    print(f"[profile] full-width Mamba-2-370m prefill (B=4, {n} tokens): "
+          f"device busy {out['prefill_busy_ms']:.2f} ms — {card}")
+    print_top(by_prefill)
+    del cache, pcache, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch under {ROOT}: run chip_smoke.py from the "
@@ -1925,11 +2537,9 @@ def main() -> int:
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.quant import (QuantPolicy, count_q4_leaves, make_qmm,
                                    param_bytes, q4_0, quantize_rows)
-    kernel = da.paged_decode_attention
-    q4k = qg.q4_gemm
-    kernels = {"paged_decode_attention": kernel, "q4_gemm": q4k,
-               "decode_attention": da.decode_attention,
-               "rglru_scan": rs.rglru_scan}
+    kernels = port_kernels()
+    kernel = kernels["paged_decode_attention"]
+    q4k = kernels["q4_gemm"]
 
     # -- 2. build: one nvcc per source, all at once -----------------------
     sources = (da.KERNEL, qg.KERNEL, da.CONTIGUOUS_KERNEL, rs.KERNEL)
@@ -2376,6 +2986,19 @@ def main() -> int:
     http_runs = http_phase(torch, np, kernels, card)
     stamp(t_start, "phase 17c, the fleet CLI on the card")
     fleet_cli_phase(card)
+
+    # -- 18. Phi-3.5-MoE at full width (16 layers), both engines ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(t_start, "phase 18, Phi-3.5-MoE at full width")
+    moe = moe_phase(torch, np, kernels, card)
+    err_q4 = max(err_q4, moe["q4_err"])
+    max_err = max(max_err, moe["paged_err"])
+    err_da = max(err_da, moe["ring_err"])
+
+    # -- 19. Mamba-2-370m through the bucket engine ------------------------
+    stamp(t_start, "phase 19, Mamba-2-370m bucket serving")
+    mamba_phase(torch, np, kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     paged_src = "src/repro_torch/csrc/paged_decode_attention.cu"
     print(json.dumps({"kernels": [{
@@ -2399,6 +3022,13 @@ def main() -> int:
             "paged_decode_attention"],
         "launches_http_router_two_replicas": http_runs["b"]["launches"][
             "paged_decode_attention"],
+        "launches_moe_continuous": moe["launches_paged"],
+        "moe_decode_step_device_ms_per_call": moe["paged_ms_per_call"],
+        "moe_serving_state": {"ms": moe["paged_ms"],
+                              "plain_ms": moe["paged_plain_ms"],
+                              "library_ms": moe["paged_sdpa_ms"],
+                              "bound_ms": moe["paged_bound_ms"],
+                              "max_abs_err": moe["paged_err"]},
     }, {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -2445,6 +3075,7 @@ def main() -> int:
         "launches_async_spec": spec["q4 + int8"]["async"][SPEC_K][
             "launches"]["q4_gemm"],
         "verify_step_device_ms": spec["q4 + int8"]["q4_verify"],
+        "moe_attention_shapes_max_abs_err": moe["q4_err"],
     }, {
         "name": "decode_attention",
         "route": "cuda",
@@ -2459,6 +3090,8 @@ def main() -> int:
         "library_ms": t_da_l,
         "decode_step_device_ms_per_call": da_dev / n_attn,
         "splits": da.decode_attention.plan[0],
+        "launches_moe_bucket": moe["launches_contiguous"],
+        "moe_ring_max_abs_err": moe["ring_err"],
         "by_shape": [{"B": B_, "kv_len": L_, "ms": t[0], "plain_ms": t[1],
                       "library_ms": t[2], "bound_ms": t[3],
                       "bound_by": t[4]}
@@ -2482,7 +3115,7 @@ def main() -> int:
                      for (B_, T_, W_), t in rs_times.items()],
         "prefill_device_ms": prefill_ms,
         "prefill_scan_device_ms": prefill_scan_ms,
-    }]}))
+    }], "profile_retraces": kernel_times.retraces}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

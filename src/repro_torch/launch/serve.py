@@ -11,19 +11,24 @@ reference draws from ``PRNGKey(0)``, since torch cannot draw JAX's.
 
 ``--engine bucket`` (the default, as in the reference) is the
 length-bucket baseline over the ring cache; it serves every ported
-arch, the hybrid RG-LRU stack of ``recurrentgemma-2b`` included (the
-contiguous decode and RG-LRU scan kernels on the card).
-``--engine continuous`` is the paged continuous-batching engine, for
-uniform self-attention stacks; ``--engine async`` serves the same stack
-through the live ``AsyncEngine`` (submit/stream on a background stepper
-thread) — add ``--interactive`` for a stdin demo that streams each
-prompt's tokens as they are sampled.
+arch, the hybrid RG-LRU stack of ``recurrentgemma-2b`` (the contiguous
+decode and RG-LRU scan kernels on the card) and the SSD stack of
+``mamba2-370m`` included.  ``--engine continuous`` is the paged
+continuous-batching engine, for uniform self-attention stacks, dense or
+MoE (``phi3.5-moe-42b-a6.6b``, ``grok-1-314b``; an SSD or hybrid stack
+raises ``NotImplementedError``, as in the reference; MoE archs serve at
+a capacity factor of 4.0, as the reference CLI sets); ``--engine async``
+serves the same stack through the live ``AsyncEngine`` (submit/stream on
+a background stepper thread) — add ``--interactive`` for a stdin demo
+that streams each prompt's tokens as they are sampled.
 
 The paged engines take ``--spec-decode K`` (draft up to K tokens per
 step by prompt lookup and verify them in one batched forward; greedy
-output stays that of K=0), ``--quant q4`` (Q4_0 attention/MLP
-projections, the hand-written Q4_0 GEMM on the card) and ``--kv-dtype
-int8`` (int8 KV pages with per-row scales).  Observability:
+output stays that of K=0, unless an MoE expert's capacity drops a token
+differently in the wider verify batch, as in the reference),
+``--quant q4`` (Q4_0 attention/MLP projections, the hand-written Q4_0
+GEMM on the card; MoE expert stacks stay dense) and ``--kv-dtype int8``
+(int8 KV pages with per-row scales).  Observability:
 ``--metrics-json PATH`` writes the metrics registry snapshot on exit,
 ``--trace PATH`` the per-request trace spans as JSONL (both checked by
 ``python -m repro_torch.obs.validate``), ``--stats-every SECS`` prints
@@ -51,6 +56,9 @@ yet, so ``--warmup-steps`` must stay 0; tensor-parallel serving
 
 Examples:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    python -m repro_torch.launch.serve --arch mamba2-370m
+    python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \\
+        --engine continuous
     python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous
     python -m repro_torch.launch.serve --arch qwen3-1.7b --engine async \\
         --spec-decode 2 --metrics-json m.json --trace t.jsonl
@@ -308,8 +316,11 @@ def main(argv=None) -> int:
         ap.error(f"unknown arch; choose 'tiny' or one of {list_archs()}")
     device = resolve_device(args.device)
     try:
+        # registry archs serve at an MoE capacity factor of 4.0, as the
+        # reference CLI sets (its workers keep the config's 1.25)
         model, params = build_served(args.arch, device,
-                                     params_path=args.params)
+                                     params_path=args.params,
+                                     capacity_factor=4.0)
     except ValueError as e:
         ap.error(f"--params {args.params} does not fit arch {args.arch} "
                  f"({e})")

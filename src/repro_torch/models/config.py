@@ -14,8 +14,9 @@ vlm / audio).  The per-layer structure is a tuple of *layer kinds*:
 
 If every layer has the same kind the stack is *uniform*: its
 parameters are stacked with a leading layer axis.  The port serves
-self-attention ("attn") stacks and the hybrid RG-LRU + local-attention
-stacks of RecurrentGemma ("rglru" with "attn"); the other kinds are
+self-attention ("attn") stacks with an MLP or MoE FFN, the hybrid RG-LRU
++ local-attention stacks of RecurrentGemma ("rglru" with "attn") and
+the Mamba-2 SSD stack ("ssd"); "xattn" and encoder-decoder stacks are
 described here so configs and parameter counts match the reference
 (``repro.models.config``).
 

@@ -15,9 +15,10 @@
                                                -> (logits, cache)
 
 for decoder stacks of self-attention ("attn") and RG-LRU ("rglru")
-layers with an MLP FFN: Qwen3, Gemma3, the bench-tiny model and
-RecurrentGemma.  Per-layer sliding window and RoPE base stay metadata
-(``cfg.layer_windows`` / ``cfg.layer_thetas``), so Gemma3's 5:1
+layers with an MLP or MoE FFN, and of Mamba-2 SSD ("ssd") layers:
+Qwen3, Gemma3, the bench-tiny model, Phi-3.5-MoE, Grok-1,
+RecurrentGemma and Mamba-2.  Per-layer sliding window and RoPE base stay
+metadata (``cfg.layer_windows`` / ``cfg.layer_thetas``), so Gemma3's 5:1
 local:global pattern is one uniform stack.
 
 Parameters are a dict tree with the reference's keys and layout, in
@@ -41,6 +42,7 @@ API parity:
   ``page_size``), in the same three forms as the parameters: per
   attention layer ``k``/``v`` (B, M, Hkv, D) and ``pos`` (M,) int32
   (slot = position mod M, -1 = empty), per RG-LRU layer ``h`` (B, W)
+  float32 and the conv tail, per SSD layer ``state`` (B, H, P, N)
   float32 and the conv tail.  ``prefill`` fills it; the scalar-position
   ``decode_step`` reads it through ``kernels.ops.gqa_decode_attention``
   (the contiguous decode kernel on the card), and every prefill runs
@@ -53,14 +55,18 @@ API parity:
 Quantized serving: ``Model.qmm`` (default ``None``) is the reference's
 quantized-matmul hook.  ``ModelRunner`` installs
 ``repro_torch.quant.make_qmm`` there under ``--quant q4``, and every
-attention and MLP projection of an attention layer then goes through it
-(the Q4_0 kernel on the card).  ``init_cache(kv_dtype="int8")``
+attention and dense MLP projection of an attention layer then goes
+through it (the Q4_0 kernel on the card); MoE expert stacks stay dense,
+as in the reference.  ``init_cache(kv_dtype="int8")``
 allocates int8 pages with per-(row, kv head) f32 scales
 (``repro_torch.quant.kv_int8``).
 
-Not part of the port yet (each raises ``NotImplementedError`` naming
-the arch or feature): MoE, SSD and cross-attention layers and
-encoder-decoder stacks.
+MoE layers (``repro_torch.models.moe``) take the reference's
+``cfg.moe_impl`` and ``cfg.capacity_factor``; each layer's router aux
+loss is summed over the stack as in the reference under
+``_run_layers(with_aux=True)``; the serving entry points discard it, so
+they leave it off and launch nothing for it.  Not part of the port yet (``NotImplementedError``
+naming the arch): cross-attention layers and encoder-decoder stacks.
 """
 
 from __future__ import annotations
@@ -75,7 +81,9 @@ from .attention import flash_attention
 from .common import (Params, dense_init, embed_init, mlp, proj, rms_norm,
                      unembed)
 from .config import ModelConfig
+from .moe import init_moe, moe
 from .recurrent import RGLRUState, init_rglru_block, rglru_block
+from .ssm import SSDState, init_ssd, ssd_block
 
 ATTN_CHUNK = 512
 
@@ -129,12 +137,26 @@ def _init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: tuple) -> Params:
                                  lead=lead)}
 
 
+def _init_ffn(gen: torch.Generator, cfg: ModelConfig, lead: tuple) -> Params:
+    if cfg.n_experts:
+        return {"moe": init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                cfg.act, cfg.dtype, lead)}
+    return {"mlp": _init_mlp(gen, cfg, lead)}
+
+
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 lead: tuple = ()) -> Params:
-    """One layer's parameters ("attn" or "rglru", each with an MLP),
-    stacked over ``lead``."""
+    """One layer's parameters, stacked over ``lead``: "attn" or "rglru"
+    with an MLP or MoE FFN, or "ssd" (the Mamba-2 block, no FFN)."""
     dev = gen.device
     p: Params = {"ln1": _init_norm(cfg, cfg.d_model, dev, lead)}
+    if kind == "ssd":
+        p["ssd"] = init_ssd(gen, cfg.d_model, n_heads=cfg.ssm_heads,
+                            head_dim=cfg.ssm_head_dim,
+                            d_state=cfg.ssm_state, n_groups=cfg.ssm_groups,
+                            conv_width=cfg.ssm_conv, dtype=cfg.dtype,
+                            lead=lead)
+        return p
     if kind == "attn":
         p["attn"] = _init_attn(gen, cfg, lead)
     else:
@@ -142,7 +164,7 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
                                       cfg.lru_width or cfg.d_model,
                                       cfg.ssm_conv, cfg.dtype, lead)
     p["ln2"] = _init_norm(cfg, cfg.d_model, dev, lead)
-    p["mlp"] = _init_mlp(gen, cfg, lead)
+    p.update(_init_ffn(gen, cfg, lead))
     return p
 
 
@@ -356,17 +378,41 @@ def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
     return proj(out.reshape(B, S, -1), ap["w_o"], qmm)
 
 
+def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor, qmm=None, *,
+         with_aux: bool) -> Tuple[torch.Tensor, Any]:
+    """The layer's FFN and its router aux loss (a 0-d float32 tensor; the
+    float 0.0 for an MLP or without ``with_aux``, so nothing is launched
+    for it).  The quantized-matmul hook reaches the dense MLP only:
+    expert stacks are never Q4_0, as in the reference."""
+    if "moe" in lp:
+        return moe(lp["moe"], x, k=cfg.experts_per_token, act=cfg.act,
+                   impl=cfg.moe_impl, capacity_factor=cfg.capacity_factor,
+                   with_aux=with_aux)
+    return mlp(lp["mlp"], x, cfg.act, qmm), 0.0
+
+
 def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
                    positions: torch.Tensor, theta: float, window: int,
                    cache: Dict[str, Any], *,
                    paged: Optional[Dict[str, Any]] = None,
                    ring: Optional[Dict[str, Any]] = None,
-                   qmm=None) -> torch.Tensor:
-    """One pre-norm block: x + mixer(norm(x)), then x + mlp(norm(x)).
-    The mixer is self-attention or the RG-LRU block, whose new state is
-    copied into the cache.  As in the reference, only attention layers
-    take the quantized-matmul hook."""
+                   qmm=None, with_aux: bool = False,
+                   ) -> Tuple[torch.Tensor, Any]:
+    """One pre-norm block: x + mixer(norm(x)), then x + ffn(norm(x));
+    returns (x, the FFN's router aux loss, as :func:`_ffn`).  The mixer
+    is self-attention, the RG-LRU block or the SSD block, whose new state
+    is copied into the cache; an SSD layer has no FFN.  As in the
+    reference, only attention layers take the quantized-matmul hook."""
     h = rms_norm(x, lp["ln1"]["g"], cfg.norm_eps)
+    if kind == "ssd":
+        st = cache["ssd"]
+        y, new = ssd_block(lp["ssd"], h, n_heads=cfg.ssm_heads,
+                           head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
+                           n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk,
+                           state=SSDState(**st))
+        st["state"].copy_(new.state)
+        st["conv"].copy_(new.conv)
+        return x + y, 0.0
     if kind == "attn":
         x = x + _self_attn(cfg, lp["attn"], h, positions, theta, window,
                            cache["self"], paged=paged, ring=ring, qmm=qmm)
@@ -380,7 +426,8 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
         x = x + y
         qmm = None
     h2 = rms_norm(x, lp["ln2"]["g"], cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg.act, qmm)
+    f, aux = _ffn(cfg, lp, h2, qmm, with_aux=with_aux)
+    return x + f, aux
 
 
 # ----------------------------------------------------------------------
@@ -388,19 +435,16 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
 # ----------------------------------------------------------------------
 
 class Model:
-    """Self-attention / RG-LRU decoder stack over a ModelConfig."""
+    """Self-attention / RG-LRU / SSD decoder stack over a ModelConfig."""
 
     def __init__(self, cfg: ModelConfig) -> None:
         kinds = cfg.layer_kinds
-        other = sorted(set(kinds) - {"attn", "rglru"})
+        other = sorted(set(kinds) - {"attn", "rglru", "ssd"})
         if cfg.is_encoder_decoder or other:
             raise NotImplementedError(
                 f"arch {cfg.name!r} has layer kinds {sorted(set(kinds))} "
                 f"(encoder-decoder={cfg.is_encoder_decoder}); the port "
-                "serves self-attention and RG-LRU decoder stacks only")
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"arch {cfg.name!r}: MoE layers are not ported yet")
+                "serves self-attention, RG-LRU and SSD decoder stacks only")
         self.cfg = cfg
         self.kinds = kinds
         self.uniform = cfg.uniform
@@ -460,6 +504,17 @@ class Model:
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "pos": torch.full(lead + (cache_len,), -1,
                                   dtype=torch.int32, device=device)}}
+        if kind == "ssd":
+            d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+            conv_ch = d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            return {"ssd": {
+                "state": torch.zeros(lead + (batch, cfg.ssm_heads,
+                                             cfg.ssm_head_dim,
+                                             cfg.ssm_state),
+                                     dtype=torch.float32, device=device),
+                "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1,
+                                            conv_ch),
+                                    dtype=cfg.dtype, device=device)}}
         width = cfg.lru_width or cfg.d_model
         return {"rglru": {
             "h": torch.zeros(lead + (batch, width), dtype=torch.float32,
@@ -481,8 +536,10 @@ class Model:
         in ``cfg.dtype`` and ``pos`` (M,) int32 (-1 = empty slot), with
         M = ``min(cache_len or max_len, max_len)``: ``cache_len <
         max_len`` makes it a sliding ring.  Each RG-LRU layer holds
-        ``h`` (batch, W) float32 and ``conv`` (batch, conv_width-1, W).
-        ``length`` is a 0-d int32 tensor (tokens seen).
+        ``h`` (batch, W) float32 and ``conv`` (batch, conv_width-1, W);
+        each SSD layer ``state`` (batch, H, P, N) float32 and ``conv``
+        (batch, conv_width-1, d_inner + 2·G·N).  ``length`` is a 0-d
+        int32 tensor (tokens seen).
 
         With ``page_size``: the **paged** cache of the continuous engine,
         uniform self-attention stacks only (as in the reference):
@@ -590,18 +647,26 @@ class Model:
                     positions: torch.Tensor, caches: Any, *,
                     window_override: Optional[int],
                     paged: Optional[Dict[str, Any]] = None,
-                    ring: Optional[Dict[str, Any]] = None) -> torch.Tensor:
-        """Unrolled layer loop; each layer updates its cache in place."""
+                    ring: Optional[Dict[str, Any]] = None,
+                    with_aux: bool = False,
+                    ) -> Tuple[torch.Tensor, Any]:
+        """Unrolled layer loop; each layer updates its cache in place.
+        Returns (x, the stack's summed router aux loss: 0.0 without MoE
+        layers or without ``with_aux``; the serving steps discard it, so
+        they leave it off)."""
         cfg = self.cfg
         windows = list(cfg.layer_windows(0))
         thetas = list(cfg.layer_thetas())
         if window_override is not None:
             windows = [window_override] * cfg.n_layers
+        aux = 0.0
         for i, lp, cache in self._layer_views(params["layers"], caches):
-            x = _layer_forward(cfg, self.kinds[i], lp, x, positions,
-                               thetas[i], windows[i], cache, paged=paged,
-                               ring=ring, qmm=self.qmm)
-        return x
+            x, a = _layer_forward(cfg, self.kinds[i], lp, x, positions,
+                                  thetas[i], windows[i], cache, paged=paged,
+                                  ring=ring, qmm=self.qmm,
+                                  with_aux=with_aux)
+            aux = aux + a
+        return x, aux
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         # JAX clamps out-of-range gathers; torch would raise, so clamp
@@ -627,8 +692,8 @@ class Model:
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         ring = {"q_pos": None, "single_step": False, "impl": impl}
-        x = self._run_layers(params, x, positions, cache["layers"],
-                             window_override=window_override, ring=ring)
+        x, _ = self._run_layers(params, x, positions, cache["layers"],
+                                window_override=window_override, ring=ring)
         cache["length"].fill_(tokens.shape[1])
         return self._logits(params, x[:, -1:]), cache
 
@@ -676,8 +741,9 @@ class Model:
                 "kv_len": int(start) + int(plen),
                 "q_offset": int(start),
             }
-        x = self._run_layers(params, x, positions, cache["layers"],
-                             window_override=window_override, paged=paged)
+        x, _ = self._run_layers(params, x, positions, cache["layers"],
+                                window_override=window_override,
+                                paged=paged)
         last = min(max(int(plen) - 1, 0), Sp - 1)
         return self._logits(params, x[:, last:last + 1]), cache
 
@@ -704,8 +770,8 @@ class Model:
         x = self._embed(params, tokens)
         positions = torch.arange(pos, pos + 1, device=tokens.device)
         ring = {"q_pos": pos, "single_step": True, "impl": impl}
-        x = self._run_layers(params, x, positions, cache["layers"],
-                             window_override=window_override, ring=ring)
+        x, _ = self._run_layers(params, x, positions, cache["layers"],
+                                window_override=window_override, ring=ring)
         cache["length"].fill_(pos + 1)
         return self._logits(params, x), cache
 
@@ -720,9 +786,10 @@ class Model:
                                                       page_size)
         paged = {"page_size": page_size, "write_slots": write_slots,
                  "block_tables": bt, "kv_len": kv_len, "impl": impl}
-        x = self._run_layers(params, self._embed(params, tokens), positions,
-                             cache["layers"], window_override=window_override,
-                             paged=paged)
+        x, _ = self._run_layers(params, self._embed(params, tokens),
+                                positions, cache["layers"],
+                                window_override=window_override,
+                                paged=paged)
         return self._logits(params, x), cache
 
     def verify_step(self, params: Params, cache: Dict[str, Any],
@@ -753,9 +820,10 @@ class Model:
         paged = {"page_size": page_size, "write_slots": write_slots,
                  "block_tables": bt, "kv_len": kv_len, "verify": True,
                  "impl": impl}
-        x = self._run_layers(params, self._embed(params, tokens), positions,
-                             cache["layers"], window_override=window_override,
-                             paged=paged)
+        x, _ = self._run_layers(params, self._embed(params, tokens),
+                                positions, cache["layers"],
+                                window_override=window_override,
+                                paged=paged)
         return self._logits(params, x), cache
 
 

@@ -4,8 +4,10 @@
 as numpy arrays (``jax.tree.map(np.asarray, params)`` on the caller's
 side), into the port's parameter tree of torch tensors on ``device``.
 The layout is the reference's, unchanged: the same dict keys, uniform
-layer stacks with a leading L axis, projections ``(d_in, d_out)``.  So
-the two packages compute the same function on the same weights.
+layer stacks with a leading L axis, projections ``(d_in, d_out)``, MoE
+expert stacks (L, E, d, f) / (L, E, f, d) beside a float32 router
+(L, d, E), and the SSD block's float32 A_log, D and dt_bias.  So the
+two packages compute the same function on the same weights.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects: they cross as their uint16 bit patterns

@@ -37,13 +37,18 @@ from typing import Any, Optional, Tuple
 
 
 def build_served(arch: str, device: Any, *, seed: int = 0,
-                 params_path: Optional[str] = None) -> Tuple[Any, Any]:
+                 params_path: Optional[str] = None,
+                 capacity_factor: Optional[float] = None,
+                 ) -> Tuple[Any, Any]:
     """``(model, params)`` for ``--arch arch`` on ``device``: bench-tiny
     for ``"tiny"``, else the registry arch's reduced float32 variant
-    (vocabulary at least the byte tokenizer's 259).  Weights are drawn
-    from ``seed``, or read from ``params_path`` and checked leaf by leaf
-    against the drawn tree's shapes.  Raises ValueError for an unknown
-    arch or weights that do not fit it."""
+    (vocabulary at least the byte tokenizer's 259), with its MoE
+    ``capacity_factor`` replaced where one is given (the serve CLI gives
+    4.0, as the reference's does; the worker keeps the config's 1.25, as
+    the reference's worker does).  Weights are drawn from ``seed``, or
+    read from ``params_path`` and checked leaf by leaf against the drawn
+    tree's shapes.  Raises ValueError for an unknown arch or weights
+    that do not fit it."""
     import torch
 
     from ..configs import BENCH_TINY, get_config, list_archs
@@ -59,6 +64,8 @@ def build_served(arch: str, device: Any, *, seed: int = 0,
         cfg = reduced_config(get_config(arch))
         cfg = dataclasses.replace(cfg, dtype=torch.float32,
                                   vocab_size=max(cfg.vocab_size, 259))
+        if capacity_factor is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
     model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -75,6 +75,16 @@ CONFIGS = {
         jreduced(jget_config("qwen2-72b")), dtype=jnp.float32),
     "recurrentgemma-3-layers": lambda: _rg(3),
     "recurrentgemma-7-layers": lambda: _rg(7),
+    # MoE FFNs (4 experts, top-2, capacity factor 1.25: tokens drop)
+    "phi3.5-moe-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("phi3.5-moe-42b-a6.6b")), dtype=jnp.float32),
+    "grok-1-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("grok-1-314b")), dtype=jnp.float32),
+    # the attention-free SSD stack: 20 prompt tokens cross two 8-token
+    # chunks, each decode step is a chunk padded with zeros; the cache is
+    # each layer's f32 state and conv tail
+    "mamba2-370m-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("mamba2-370m")), dtype=jnp.float32),
 }
 
 
@@ -234,10 +244,14 @@ def _requests(S, lens, V, max_new, seed=3):
                       sampling=sp) for i, n in enumerate(lens)]
 
 
-@pytest.mark.parametrize("name", ["bench-tiny", "recurrentgemma-7-layers"])
+@pytest.mark.parametrize("name", ["bench-tiny", "recurrentgemma-7-layers",
+                                  "phi3.5-moe-reduced", "grok-1-reduced",
+                                  "mamba2-370m-reduced"])
 def test_bucket_engine_matches_the_reference_engine(name):
     """Two length buckets of two requests each (``max_batch=2``) and a
-    third bucket of one; 8 greedy tokens per request."""
+    third bucket of one; 8 greedy tokens per request.  The MoE archs run
+    at their capacity factor, 1.25, so a bucket's tokens can drop, as in
+    the reference."""
     jcfg = CONFIGS[name]()
     jm, jparams, tm, tparams = _shared(jcfg, seed=1)
     lens, V = [9, 14, 9, 14, 5], jcfg.vocab_size

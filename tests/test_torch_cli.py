@@ -30,22 +30,26 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 ARCH = "qwen3-1.7b"
 
 
-@pytest.fixture(scope="module")
-def params_npz(tmp_path_factory):
-    """The reference CLI's weights for ``--arch qwen3-1.7b``, built as it
-    builds them (``repro/launch/serve.py``), written to an ``.npz``."""
-    cfg = jreduced(jget_config(ARCH))
+def _reference_npz(arch, directory):
+    """The reference CLI's weights for ``--arch arch``, built as it builds
+    them (``repro/launch/serve.py``), written to an ``.npz``."""
+    cfg = jreduced(jget_config(arch))
     cfg = dataclasses.replace(cfg, dtype=jnp.float32, capacity_factor=4.0,
                               vocab_size=max(cfg.vocab_size, 259))
     params = jbuild(cfg).init(jax.random.PRNGKey(0))
-    path = str(tmp_path_factory.mktemp("cli") / "qwen3-reduced.npz")
+    path = str(directory / f"{arch}-reduced.npz")
     save_params_npz(jax.tree.map(np.asarray, params), path)
     return path
 
 
-def _completions(module, args):
+@pytest.fixture(scope="module")
+def params_npz(tmp_path_factory):
+    return _reference_npz(ARCH, tmp_path_factory.mktemp("cli"))
+
+
+def _completions(module, args, arch=ARCH):
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, "-m", module, "--arch", ARCH,
+    out = subprocess.run([sys.executable, "-m", module, "--arch", arch,
                           "--max-new", "8"] + args, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -65,6 +69,60 @@ def test_port_cli_prints_the_reference_cli_text(params_npz, engine, flags):
                        ["--engine", engine, "--device", "cpu", "--params",
                         params_npz] + flags)
     assert got == want
+
+
+@pytest.mark.parametrize("arch,engine", [
+    ("phi3.5-moe-42b-a6.6b", "continuous"), ("mamba2-370m", "bucket")])
+def test_port_cli_prints_the_reference_cli_text_for_moe_and_ssd(
+        arch, engine, tmp_path):
+    """The MoE FFN at the CLI's capacity factor (4.0 in both CLIs, not the
+    config's 1.25) through the paged engine, and the SSD stack through
+    the bucket engine, on the reference CLI's weights."""
+    path = _reference_npz(arch, tmp_path)
+    want = _completions("repro.launch.serve",
+                        ["--engine", engine, "--warmup-steps", "0"], arch)
+    got = _completions("repro_torch.launch.serve",
+                       ["--engine", engine, "--device", "cpu", "--params",
+                        path], arch)
+    assert got == want
+
+
+@pytest.mark.parametrize("engine", ["continuous", "async"])
+def test_paged_engines_on_an_ssd_arch_raise_as_the_reference(
+        engine, monkeypatch):
+    """``--engine continuous|async --arch mamba2-370m``: the paged cache
+    refuses a stack that is not self-attention, with the reference's
+    error."""
+    from repro.launch.serve import main as ref_main
+    flags = ["--arch", "mamba2-370m", "--engine", engine]
+    monkeypatch.setattr(sys, "argv", ["serve"] + flags +
+                        ["--warmup-steps", "0"])
+    with pytest.raises(NotImplementedError) as want:
+        ref_main()
+    with pytest.raises(NotImplementedError) as got:
+        port_main(flags + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "paged KV cache requires a uniform self-attention stack" in str(
+        got.value)
+
+
+def test_cli_and_worker_keep_the_reference_capacity_factors(monkeypatch):
+    """The serve CLI builds registry archs at capacity factor 4.0 (the
+    reference CLI's), the engine worker at the config's 1.25 (the
+    reference worker's)."""
+    import repro_torch.serving.worker as worker
+    model, _ = worker.build_served("phi3.5-moe-42b-a6.6b", "cpu")
+    assert model.cfg.capacity_factor == 1.25
+    seen = {}
+
+    def build(arch, device, **kw):
+        seen.update(kw, arch=arch)
+        raise SystemExit(7)
+
+    monkeypatch.setattr(worker, "build_served", build)
+    with pytest.raises(SystemExit) as ei:
+        port_main(["--arch", "phi3.5-moe-42b-a6.6b", "--device", "cpu"])
+    assert ei.value.code == 7 and seen["capacity_factor"] == 4.0
 
 
 @pytest.mark.parametrize("flags", [

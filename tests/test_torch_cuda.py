@@ -371,11 +371,12 @@ def test_paged_kernel_over_long_tables(kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("G,D", [(1, 256), (3, 64), (5, 16), (8, 128),
-                                 (10, 256), (16, 128), (16, 48)])
+@pytest.mark.parametrize("G,D", [(1, 256), (3, 64), (4, 128), (5, 16),
+                                 (8, 128), (10, 256), (16, 128), (16, 48)])
 def test_paged_kernel_head_groups(kind, G, D):
     """G 1-16 at D 16-256: groups above a block's heads (8, or 4 for int8
-    pages) take several blocks; G not a power of two pads the last one."""
+    pages) take several blocks; G not a power of two pads the last one;
+    G = 4 at D = 128 is Phi-3.5-MoE's group."""
     dev = _device()
     lens = [0, 1, 100, 257, 16 * 24]
     q, k, v, bt, lens_t = _case(G * D, B=len(lens), H=2, G=G, D=D, ps=16,
@@ -510,9 +511,31 @@ def test_ring_kernel_matches_plain_version(B):
                     assert excess <= 0, (n_written, window, softcap, err)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_written", [1, 257, 288, 700])
+def test_ring_kernel_at_phi35_moe_decode_shape(n_written):
+    """Phi-3.5-MoE's bucket-engine decode shape (B = 4, 8 kv heads of
+    G = 4, D = 128, a bf16 ring of 288 slots): a ring that is filling,
+    one that is full and a wrapped one, global and windowed."""
+    dev = _device()
+    B, S, H, G, D = 4, 288, 8, 4, 128
+    q, k, v = _cache_case(n_written, B=B, S=S, H=H, G=G, D=D,
+                          dtype=torch.bfloat16, dev=dev)
+    live = torch.ones(B, H, G, D, dtype=torch.bool, device=dev)
+    pos = ring_positions(n_written, S, dev)
+    for window in (0, 7):
+        kw = dict(kv_positions=pos, q_pos=n_written - 1, window=window)
+        got = decode_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = tref.decode_attention_ref(q, k, v, **kw)
+        assert got.dtype == q.dtype and torch.isfinite(got).all()
+        excess, err = _max_excess(got, want, live)
+        assert excess <= 0, (window, err)
+
+
 #: head groups G at head dims D, both cache types: every G * D the
 #: wrapper takes (G * D <= 4096)
-_GROUPS = [(G, D) for G in (1, 2, 8, 10, 16, 32) for D in (32, 128, 256)
+_GROUPS = [(G, D) for G in (1, 2, 4, 8, 10, 16, 32) for D in (32, 128, 256)
            if G * D <= 4096]
 
 

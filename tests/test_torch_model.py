@@ -24,8 +24,9 @@ from repro.models import build_model as jbuild
 from repro.models import reduced_config as jreduced
 from repro_torch.configs import BENCH_TINY, get_config, list_archs
 from repro_torch.models import ModelConfig, build_model, reduced_config
-from repro_torch.models.weights import (load_params_npz, params_from_numpy,
-                                        params_to_numpy, save_params_npz,
+from repro_torch.models.weights import (load_params_like, load_params_npz,
+                                        params_from_numpy, params_to_numpy,
+                                        save_params_npz,
                                         tree_leaves_with_path)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -76,6 +77,13 @@ CONFIGS = {
     # the only arch with QKV biases
     "qwen2-72b-reduced": lambda: dataclasses.replace(
         jreduced(jget_config("qwen2-72b")), dtype=jnp.float32),
+    # MoE FFNs (4 experts, top-2, capacity factor 1.25: the padded
+    # prefill rows and the idle lane take capacity, and tokens drop);
+    # Grok-1 adds the attention logit softcap
+    "phi3.5-moe-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("phi3.5-moe-42b-a6.6b")), dtype=jnp.float32),
+    "grok-1-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("grok-1-314b")), dtype=jnp.float32),
 }
 
 
@@ -125,12 +133,15 @@ def test_port_shapes_match_the_reference():
         k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-2b",
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-370m"])
 def test_params_npz_round_trip_is_bit_exact(arch, tmp_path):
     """The reference's tree through ``save_params_npz`` (bf16 leaves as
-    their bits; RecurrentGemma's blocks-and-tail lists) and back with
-    ``load_params_npz`` equals the bridge's tree, leaf for leaf, bit for
-    bit."""
+    their bits; RecurrentGemma's blocks-and-tail lists; the MoE expert
+    stacks (L, E, d, f) / (L, E, f, d) and the f32 router; the SSD
+    block's f32 A_log, D and dt_bias) and back with ``load_params_npz``
+    equals the bridge's tree, leaf for leaf, bit for bit, and fits the
+    port's own init through ``load_params_like``."""
     jcfg = jreduced(jget_config(arch))                  # bf16 leaves
     if arch == "recurrentgemma-2b":
         jcfg = dataclasses.replace(jcfg, n_layers=7)    # 2 blocks + a tail
@@ -146,6 +157,11 @@ def test_params_npz_round_trip_is_bit_exact(arch, tmp_path):
         g = flat_got[p]
         assert g.dtype == w.dtype and g.shape == w.shape, p
         assert torch.equal(g.view(torch.uint8), w.view(torch.uint8)), p
+    mine = build_model(_port_cfg(jcfg, torch.bfloat16)).init(
+        torch.Generator().manual_seed(0))
+    for p, leaf in tree_leaves_with_path(load_params_like(path, mine,
+                                                          "cpu")):
+        assert leaf.dtype == dict(tree_leaves_with_path(mine))[p].dtype, p
 
 
 def _run_both(jcfg):
@@ -231,16 +247,18 @@ def test_paged_prefill_and_decode_match_the_reference(name):
 
 
 def test_unsupported_features_raise():
-    """MoE, SSD and cross-attention layers and the paged cache on a
-    hybrid (RG-LRU + attention) stack are not ported.  (Speculative
-    verify is: ``tests/test_torch_spec.py`` holds it to the reference.)"""
-    for arch_cfg in (dataclasses.replace(BENCH_TINY, n_experts=4,
-                                         experts_per_token=2),
-                     dataclasses.replace(BENCH_TINY, arch_type="ssm"),
-                     dataclasses.replace(BENCH_TINY, cross_attn_every=2)):
+    """Cross-attention layers and encoder-decoder stacks are not ported,
+    and the paged cache refuses a hybrid (RG-LRU + attention) or an SSD
+    stack, as the reference's does.  (MoE and SSD layers are ported:
+    ``tests/test_torch_moe.py`` and ``tests/test_torch_ssm.py``;
+    speculative verify too: ``tests/test_torch_spec.py``.)"""
+    for arch_cfg in (dataclasses.replace(BENCH_TINY, cross_attn_every=2),
+                     dataclasses.replace(BENCH_TINY,
+                                         is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError, match="bench-tiny"):
             build_model(arch_cfg)
-    hybrid = build_model(dataclasses.replace(
-        BENCH_TINY, block_pattern=("rglru", "attn")))
-    with pytest.raises(NotImplementedError, match="paged KV cache"):
-        hybrid.init_cache(2, 16, page_size=4, device="cpu")
+    for kinds in (dict(block_pattern=("rglru", "attn")),
+                  dict(arch_type="ssm", ssm_heads=4, ssm_state=8)):
+        model = build_model(dataclasses.replace(BENCH_TINY, **kinds))
+        with pytest.raises(NotImplementedError, match="paged KV cache"):
+            model.init_cache(2, 16, page_size=4, device="cpu")

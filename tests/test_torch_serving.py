@@ -212,6 +212,86 @@ def test_engine_greedy_tokens_match_the_reference(shared_model, case):
         assert st_t["cow_copies"] >= 1 and st_t["shared_pages"] >= 1
 
 
+def _moe_shared(arch, capacity_factor=None):
+    """A reduced MoE arch in float32 (4 experts, top-2) in both packages,
+    on the reference's ``PRNGKey(0)`` weights."""
+    from repro.configs import get_config as jget_config
+    from repro.models import reduced_config as jreduced
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)),
+                               dtype=jnp.float32)
+    if capacity_factor is not None:
+        jcfg = dataclasses.replace(jcfg, capacity_factor=capacity_factor)
+    jm = jbuild(jcfg)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(JModelConfig)}
+    fields["dtype"] = torch.float32
+    return (jm, jax.tree.map(jnp.asarray, tree),
+            tbuild(ModelConfig(**fields)), params_from_numpy(tree, "cpu"))
+
+
+MOE_ARCHS = ["phi3.5-moe-42b-a6.6b", "grok-1-314b"]
+
+
+@pytest.mark.parametrize("arch,case", [(a, c) for a in MOE_ARCHS
+                                       for c in sorted(ENGINE_CASES)])
+def test_moe_engine_greedy_tokens_match_the_reference(arch, case):
+    """The continuous engines of both packages on a reduced MoE arch at
+    the config's capacity factor, 1.25: a decode step's capacity counts
+    its idle lanes and a prefill chunk's its padded rows, so tokens drop,
+    and the port must drop the same ones (the virtual clock fixes the
+    schedule)."""
+    jm, jparams, tm, tparams = _moe_shared(arch)
+    prompts, max_new, arrivals, kw = ENGINE_CASES[case]
+    out = {}
+    for pkg, S, model, params, extra in (
+            ("repro", jserving, jm, jparams, {}),
+            ("repro_torch", tserving, tm, tparams, {"device": "cpu"})):
+        reqs = [S.Request(uid=i, prompt=[int(t) for t in p],
+                          sampling=S.SamplingParams(max_new_tokens=max_new))
+                for i, p in enumerate(prompts)]
+        eng = S.ContinuousServingEngine(model, params, max_len=48,
+                                        page_size=4,
+                                        clock=S.VirtualClock(), **kw,
+                                        **extra)
+        out[pkg] = ([c.tokens for c in eng.generate(reqs, arrivals=arrivals)],
+                    eng.pool.stats)
+    assert out["repro_torch"] == out["repro"]
+    assert all(len(t) == max_new for t in out["repro"][0])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_async_and_bucket_engines_match_the_reference(arch):
+    """At the serve CLI's capacity factor, 4.0, four experts never drop a
+    token, so an MoE step's rows are independent and the async engine's
+    live batching cannot change a token: the port's async, continuous
+    and bucket engines and the reference's async engine give the same
+    greedy tokens."""
+    jm, jparams, tm, tparams = _moe_shared(arch, capacity_factor=4.0)
+
+    def reqs(S):
+        return [S.Request(uid=i, prompt=[int(t) for t in p],
+                          sampling=S.SamplingParams(max_new_tokens=6))
+                for i, p in enumerate(MIXED)]
+
+    with tserving.AsyncEngine(tm, tparams, max_len=48, max_running=3,
+                              page_size=4, device="cpu") as eng:
+        handles = [eng.submit(r) for r in reqs(tserving)]
+        got = [eng.result(h, timeout=120).tokens for h in handles]
+    with jserving.AsyncEngine(jm, jparams, max_len=48, max_running=3,
+                              page_size=4) as jeng:
+        handles = [jeng.submit(r) for r in reqs(jserving)]
+        want = [jeng.result(h, timeout=300).tokens for h in handles]
+    cont = tserving.ContinuousServingEngine(
+        tm, tparams, max_len=48, max_running=3, page_size=4,
+        device="cpu").generate(reqs(tserving))
+    bucket = tserving.ServingEngine(tm, tparams, max_len=48,
+                                    device="cpu").generate(reqs(tserving))
+    assert got == want
+    assert [c.tokens for c in cont] == want
+    assert [c.tokens for c in bucket] == want
+
+
 def test_engine_refuses_missing_gpu_and_unported_features(shared_model):
     """No GPU raises, and tensor-parallel serving (``mesh=``) is not
     ported; speculative decoding is (``tests/test_torch_spec.py``), and
@@ -261,6 +341,8 @@ def test_port_imports_without_jax_or_the_reference():
         "import repro_torch.kernels.rglru_scan\n"
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.models.recurrent, repro_torch.models.ssm\n"
+        "import repro_torch.models.moe, repro_torch.configs.phi35_moe\n"
+        "import repro_torch.configs.grok1, repro_torch.configs.mamba2_370m\n"
         "import repro_torch.serving.async_engine, repro_torch.obs.validate\n"
         "import repro_torch.configs.granite_3_8b\n"
         "import repro_torch.configs.qwen2_72b, repro_torch.configs.shapes\n"

@@ -80,6 +80,12 @@ VERIFY_CONFIGS = {
         jreduced(jget_config("granite-3-8b")), dtype=jnp.float32),
     "qwen2-72b-reduced": lambda: dataclasses.replace(
         jreduced(jget_config("qwen2-72b")), dtype=jnp.float32),
+    # MoE FFNs: a verify step routes all B * S columns (idle lanes and
+    # columns past n_fed included) under one capacity
+    "phi3.5-moe-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("phi3.5-moe-42b-a6.6b")), dtype=jnp.float32),
+    "grok-1-reduced": lambda: dataclasses.replace(
+        jreduced(jget_config("grok-1-314b")), dtype=jnp.float32),
 }
 
 
