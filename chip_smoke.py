@@ -100,7 +100,12 @@ non-zero if any phase fails, or if no CUDA device is present:
 14. timing of both, inputs rotated past the L2: the decode kernel at B=4
     and 8, kv_len 544 and 2048 over a ring, beside its plain version, its
     byte bound and ``scaled_dot_product_attention`` with a boolean mask
-    (the yardstick the port never calls); the scan at (4, 512, 2560),
+    (the yardstick the port never calls); the decode kernel in its
+    ``kv_len`` form at the two cross-attention reads of phases 20-21
+    (B=4, kv_len 6404, 8 kv heads of G=4, D=128; B=4, kv_len 1500, 16
+    heads, G=1, D=64; bf16 K/V), each first held against its plain
+    version, beside it, its byte bound and an unmasked
+    ``scaled_dot_product_attention``; the scan at (4, 512, 2560),
     (4, 256, 2560), (1, 512, 2560) and (1, 2048, 2560) beside its plain
     version, its byte bound and its plan (no PyTorch call computes this
     recurrence);
@@ -177,7 +182,33 @@ non-zero if any phase fails, or if no CUDA device is present:
     chunk edges, with and without an initial state (f32, ``SSD_TOL``);
     the logits of a decode step after a prefill of 511 tokens against
     the last logits of a prefill of 512 (0.125); prints the device time
-    of a decode step and of a 512-token prefill call, and peak memory.
+    of a decode step and of a 512-token prefill call, and peak memory;
+20. full-width, full-depth Llama-3.2-Vision-11B (40 layers, every fifth a
+    tanh-gated cross-attention layer over 6404 image tokens, d_model
+    4096, 32 / 8 heads x 128, d_ff 14,336, vocab 128,256, untied, bf16;
+    9.775 B parameters drawn on the card, every gate drawn nonzero)
+    through ``ServingEngine``: four prompts of 256 random tokens, each
+    with its own image stub (the port's numpy ``stub_image_embeds``, fed
+    in bf16), ``max_batch=4``, 16 greedy tokens each; checks the
+    completions and that the contiguous kernel ran 40 times a decode
+    step (32 ring reads, 8 cross-attention reads in the ``kv_len``
+    form); one ring decode step with the kernels against the plain
+    versions on a clone of the cache (``LOGIT_TOL``); the kernel against
+    its plain version at the first cross-attention layer's K/V; the same
+    decode step over another lane's image moving the logits by more than
+    0.1; a decode step after a prefill of 255 tokens against the last
+    logits of a prefill of 256 (0.125); prints a profiled decode step's
+    device time and busy share, a prefill call's device time, peak
+    memory, decode tok/s and TTFT p50;
+21. full-width, full-depth Whisper-medium (24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads x 64, d_ff 4096, GELU, LayerNorm,
+    tied, bf16; 0.758 B parameters) the same way: four prompts of 64
+    tokens and four of 128, each with its own 1500 x 1024 frame stub
+    (``stub_frames``, in bf16), ``max_batch=4`` (two buckets: the
+    encoder runs twice), 32 tokens each; the contiguous kernel 48 times
+    a decode step (24 ring + 24 cross-attention reads); the same checks
+    and numbers, and the encoder's device time over the prefill's
+    frames.
 
 The build phase prints nvcc's register and spill report for every
 kernel, and the scan's plan and shared memory at its timed shapes.  It
@@ -190,7 +221,8 @@ profiled prefill call; the paged entries and the Q4_0 entry also their
 launches in phase 10's k=2 run and their device time in a verify step,
 the bf16 paged entry its launches in phases 17a, 17b and 18a and its
 device time a call in 18a's decode step, the contiguous entry its
-launches in 18b, the Q4_0 entry its error at 18c's shapes),
+launches in 18b, 20 and 21 and its two cross-attention shapes' times,
+the Q4_0 entry its error at 18c's shapes),
 and as the last line ``{"ok": true, "device":
 {...}}``.  Nothing
 here imports JAX or the reference package.
@@ -960,6 +992,54 @@ def time_decode_kernel(torch, F, ref, kern, gen, card, dev="cuda"):
                   f"(masked, enable_gqa) {t_l * 1e3:.1f} us, bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}) — {card}")
             del ks, vs, kt, vt
+    return out
+
+
+#: the cross-attention reads of a decode step (B, kv_len, kv heads, G, D):
+#: Llama-3.2-Vision's 6404 image tokens and Whisper-medium's 1500 frames
+CROSS_SHAPES = ((4, 6404, 8, 4, 128), (4, 1500, 16, 1, 64))
+
+
+def time_cross_kernel(torch, F, ref, kern, gen, card):
+    """Phase 14c: the decode kernel in the TPU kernel's ``kv_len`` form,
+    every slot valid, at CROSS_SHAPES with bf16 K/V rotated past the L2:
+    each held against its plain version first, then timed beside it, its
+    byte bound and ``scaled_dot_product_attention`` over the same K/V (no
+    mask: every slot is valid; the yardstick the port never calls).
+    Returns {shape: (kernel ms, plain ms, SDPA ms, bound ms, bound_by,
+    max |kernel - plain|)}."""
+    out = {}
+    for B, M, H, G, D in CROSS_SHAPES:
+        n = max(2, math.ceil(ROTATE_BYTES / (2 * B * M * H * D * 2)))
+        q = torch.randn(B, H, G, D, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ks = [torch.randn(B, M, H, D, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(n)]
+        vs = [torch.randn(B, M, H, D, generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(n)]
+        got = kern(q, ks[0], vs[0], M)
+        torch.cuda.synchronize()
+        err = check(torch, got, ref.decode_attention_ref(q, ks[0], vs[0], M),
+                    ..., f"decode_attention kv_len={M} (B={B}, {H}/{H * G} "
+                    f"heads, D={D})")
+        t_k = cuda_ms(torch, lambda i: kern(q, ks[i % n], vs[i % n], M), 200)
+        t_p = cuda_ms(torch, lambda i: ref.decode_attention_ref(
+            q, ks[i % n], vs[i % n], M).to(q.dtype), 20)
+        kt = [t.transpose(1, 2).contiguous() for t in ks]
+        vt = [t.transpose(1, 2).contiguous() for t in vs]
+        qs = q.reshape(B, H * G, 1, D)
+        t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qs, kt[i % n], vt[i % n], enable_gqa=True), 200)
+        b_ms, b_by = least(2 * B * M * H * D * 2 + 2 * B * H * G * D * 2,
+                           4 * B * M * H * G * D, "bfloat16")
+        out[(B, M, H, G, D)] = (t_k, t_p, t_l, b_ms, b_by, err)
+        print(f"[timing] decode_attention kv_len={M} (cross-attention read, "
+              f"B={B}, {H}/{H * G} heads, D={D}, bf16 K/V, plan "
+              f"{kern.plan}): kernel {t_k * 1e3:.1f} us, plain "
+              f"{t_p * 1e3:.1f} us, sdpa (enable_gqa, no mask) "
+              f"{t_l * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}); "
+              f"max|kernel-plain| {err:.3e} — {card}")
+        del ks, vs, kt, vt
     return out
 
 
@@ -2005,6 +2085,10 @@ MOE_DISPATCH_RTOL = 2.0 ** -5
 #: the largest output on the CPU at these shapes;
 #: |chunked - oracle| <= SSD_TOL * max|oracle|
 SSD_TOL = 2e-5
+#: phases 20 and 21: (phase, arch, prompt lengths (four prompts each),
+#: greedy tokens a request)
+XATTN_PHASES = ((20, "llama-3.2-vision-11b", (256,), 16),
+                (21, "whisper-medium", (64, 128), 32))
 #: Mamba-2-370m logits, a decode step after a prefill of n tokens against
 #: the last logits of a prefill of n + 1: the decode step is a chunk padded
 #: with zeros, so the two sum the same terms in another order and round
@@ -2506,6 +2590,243 @@ def mamba_phase(torch, np, kernels, card):
     return out
 
 
+def live_gates(torch, params, gen):
+    """Every cross-attention ``gate`` of ``params`` drawn uniform in
+    [0.5, 1.5) from ``gen``, in place: the init's zero gates would switch
+    every cross-attention off (tanh(0) = 0), and the phase would pass
+    with it broken.  Returns the number of gates."""
+    from repro_torch.models.weights import tree_leaves_with_path
+    n = 0
+    for path, leaf in tree_leaves_with_path(params):
+        if path[-1] == "gate":
+            leaf.copy_(torch.rand(leaf.shape, generator=gen,
+                                  device=leaf.device) + 0.5)
+            n += leaf.numel()
+    return n
+
+
+def xattn_phase(torch, np, kernels, card, phase, arch, lens, n_new):
+    """Phases 20 and 21: full-width ``arch`` (Llama-3.2-Vision-11B or
+    Whisper-medium) through the bucket engine, weights drawn on the card
+    from seed 0 with every gate drawn nonzero.  Four prompts of
+    each length in ``lens``, each with its own image or audio stub (the
+    port's ``data.pipeline`` stub, the reference's numpy draw, fed in
+    ``cfg.dtype``, as a caller may), ``max_batch=4``, ``n_new`` greedy
+    tokens each; counts set to 0 just before and read just after.
+    Checks: the completions; contiguous-kernel launches = (self-attention
+    layers + cross-attention reads) x decode steps; from the largest
+    bucket's prefill, one decode step with the kernels against the plain
+    versions on a clone of the ring (``LOGIT_TOL``), the same step with
+    every gate at 0 and over another lane's memory each moving the logits
+    by more than 0.1 (both printed beside ``LOGIT_TOL``), the kernel
+    against its plain version at the first cross-attention layer's K/V
+    (``kv_len`` = M); a decode step after a prefill of n - 1 tokens against
+    the last logits of a prefill of n.  Profiles a decode step (its
+    contiguous-kernel launches counted), a prefill call and, for Whisper,
+    the encoder alone over the same frames.  Returns the phase's
+    numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import stub_frames, stub_image_embeds
+    from repro_torch.kernels import ref
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.weights import tree_leaves_with_path, tree_map
+    from repro_torch.quant import param_bytes
+    from repro_torch.serving import (Request, SamplingParams, ServingEngine,
+                                     throughput_report)
+    cfg = get_config(arch)
+    V, d = cfg.vocab_size, cfg.d_model
+    model = build_model(cfg)
+    # the model names the input its cross-attention reads
+    key = model.memory_input
+    stub, M = {"frames": (stub_frames, cfg.n_audio_frames),
+               "image_embeds": (stub_image_embeds, cfg.n_image_tokens)}[key]
+    t0 = time.perf_counter()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(0)
+    params = model.init(wgen)
+    n_gates = live_gates(torch, params, wgen)
+    torch.cuda.synchronize()
+    n_self = model.kinds.count("attn")
+    n_cross = n_self if model.decoder_cross else model.kinds.count("xattn")
+    per_step = n_self + n_cross
+    enc = (f"{cfg.n_encoder_layers} encoder layers over {M} frames, "
+           if cfg.is_encoder_decoder else f"{M} image tokens, ")
+    print(f"[xattn] {phase}: {cfg.name}: {cfg.n_layers} decoder layers "
+          f"({n_self} self-attention, {n_cross} with cross-attention), "
+          f"{enc}d_model {d}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {V}; "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{param_bytes(params) / 2**30:.2f} GiB of {cfg.dtype} weights, "
+          f"{n_gates} gates drawn in [0.5, 1.5) "
+          f"({time.perf_counter() - t0:.1f} s to draw); the {key} stubs "
+          f"are the port's numpy draws, fed in {cfg.dtype}", flush=True)
+
+    def memory(seed):
+        return torch.from_numpy(stub(1, M, d, seed=seed)[0]).to(
+            "cuda", cfg.dtype)
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, V, n).tolist() for n in lens for _ in range(4)]
+    mems = [memory(i) for i in range(len(prompts))]
+    eng = ServingEngine(model, params, max_len=max(lens) + n_new + 16,
+                        seed=0, device="cuda")
+    calls = {"prefill": 0, "decode": 0}
+    eng.runner.prefill = counted(calls, "prefill", eng.runner.prefill)
+    eng.runner.decode = counted(calls, "decode", eng.runner.decode)
+    eng.generate([Request(uid=100, prompt=prompts[0][:16],
+                          sampling=SamplingParams(max_new_tokens=2),
+                          extra={key: mems[0]})])
+    reqs = [Request(uid=i, prompt=p,
+                    sampling=SamplingParams(max_new_tokens=n_new),
+                    extra={key: mems[i]}) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0                     # count this path only
+    calls.update(prefill=0, decode=0)
+    comps = eng.generate(reqs, max_batch=4)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    out = {"serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": counts["decode_attention"], "per_step": per_step}
+    for c in comps:
+        if len(c.tokens) != n_new or not all(0 <= t < V for t in c.tokens):
+            fail(f"{phase}: request {c.uid}: {len(c.tokens)} tokens")
+    if calls["prefill"] != len(lens) or calls["decode"] <= 0:
+        fail(f"{phase}: runner calls {calls}: expected {len(lens)} "
+             "prefills and decode steps")
+    if counts["decode_attention"] != per_step * calls["decode"]:
+        fail(f"{phase}: contiguous launches {counts['decode_attention']} != "
+             f"{per_step} x {calls['decode']} decode steps")
+    for name in ("paged_decode_attention", "q4_gemm", "rglru_scan"):
+        if counts[name]:
+            fail(f"{phase}: launched {name} {counts[name]} times")
+    rep = throughput_report(comps, **eng.last_phase_s)
+    ttft = sorted(c.t_first - c.t0 for c in comps)
+    out.update(decode_steps=calls["decode"],
+               decode_tok_per_s=rep["decode_tok_per_s"],
+               ttft_p50_ms=ttft[len(ttft) // 2] * 1e3)
+    print(f"[xattn] {phase}: {len(comps)} requests x {n_new} tokens in "
+          f"{len(eng._buckets(reqs, 4))} bucket(s); {calls['prefill']} "
+          f"prefill calls, {calls['decode']} decode steps; contiguous decode "
+          f"attention {counts['decode_attention']} = {per_step} x "
+          f"{calls['decode']} ({n_self} ring + {n_cross} kv_len reads a "
+          f"step); decode {rep['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{rep['prefill_tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{out['ttft_p50_ms']:.1f} ms, peak memory "
+          f"{out['serve_peak_gib']:.2f} GiB — {card}", flush=True)
+    del eng, comps
+
+    # parity from the largest bucket's prefill
+    n, B = max(lens), 4
+    toks = torch.tensor(prompts[-B:], dtype=torch.long, device="cuda")
+    batch = {"tokens": toks, key: torch.stack(mems[-B:])}
+    cache = model.init_cache(B, n + 48, device="cuda")
+    logits, _ = model.prefill(params, batch, cache)
+    fed = logits[:, 0].float().argmax(-1, keepdim=True)
+    clone = tree_map(lambda t: t.clone(), cache)
+    off = tree_map(lambda t: t.clone(), cache)
+    moved = dict(tree_map(lambda t: t.clone(), cache),
+                 memory=cache["memory"].roll(1, 0))
+    got, _ = model.decode_step(params, cache, fed, n)
+    want, _ = model.decode_step(params, clone, fed, n, impl="ref")
+    logit_parity(torch, got, want, LOGIT_TOL,
+                 f"{phase} {cfg.name} ring decode logits, kernels vs plain")
+    other, _ = model.decode_step(params, moved, fed, n)
+    # the cross-attention switched off: every gate at 0, then restored
+    gates = [leaf for path, leaf in tree_leaves_with_path(params)
+             if path[-1] == "gate"]
+    drawn = [g.clone() for g in gates]
+    for g in gates:
+        g.zero_()
+    dead, _ = model.decode_step(params, off, fed, n)
+    for g, w in zip(gates, drawn):
+        g.copy_(w)
+
+    def max_d(a):
+        return (a.float() - got.float()).abs().max().item()
+
+    out.update(live_gates_off_max_d=max_d(dead), live_max_d=max_d(other),
+               parity_max_d=max_d(want))
+    print(f"[parity] {phase}: the same decode step with every gate at 0 "
+          f"moves the logits by max|d| {out['live_gates_off_max_d']:.3f}, "
+          f"over the next lane's {key} by {out['live_max_d']:.3f} (each "
+          "must exceed 0.1: the cross-attention is live); that is "
+          f"{out['live_gates_off_max_d'] / LOGIT_TOL:.2f}x / "
+          f"{out['live_max_d'] / LOGIT_TOL:.2f}x LOGIT_TOL, where the "
+          f"kernels against the plain versions moved them by "
+          f"{out['parity_max_d']:.4f}")
+    if not (out["live_gates_off_max_d"] > 0.1 and out["live_max_d"] > 0.1):
+        fail(f"{phase}: the cross-attention does not reach the logits")
+    del clone, off, moved, other, dead, drawn
+    # the kernel at the first cross-attention layer's K/V, kv_len = M
+    lp = next(lp for _, lp, _c in model._layer_views(params["layers"],
+                                                       cache["layers"])
+              if "xattn" in lp)
+    mem = cache["memory"]
+    _, k, v = transformer._project_qkv(cfg, lp["xattn"], mem[:, :1], mem)
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    q = torch.randn(B, Hkv, cfg.n_heads // Hkv, hd, generator=gen,
+                    device="cuda").to(cfg.dtype)
+    got_k = kernels["decode_attention"](q, k, v, M)
+    torch.cuda.synchronize()
+    out["cross_err"] = check(torch, got_k, ref.decode_attention_ref(
+        q, k, v, M), ..., f"{phase} decode_attention at the first "
+        "cross-attention layer's K/V")
+    print(f"[kernel] {phase} decode_attention at the first cross-attention "
+          f"layer's K/V (B={B}, kv_len {M}, {Hkv}/{cfg.n_heads} heads, "
+          f"D={hd}, {k.dtype}): max|kernel-plain| {out['cross_err']:.3e}")
+    del k, v, q, got_k
+    # a decode step after a prefill of n - 1 tokens against the last
+    # logits of a prefill of n
+    short = model.init_cache(B, n + 48, device="cuda")
+    model.prefill(params, dict(batch, tokens=toks[:, :n - 1]), short)
+    got, _ = model.decode_step(params, short, toks[:, n - 1:n], n - 1)
+    whole = model.init_cache(B, n + 48, device="cuda")
+    want, _ = model.prefill(params, batch, whole)
+    logit_parity(torch, got, want, LOGIT_TOL,
+                 f"{phase} {cfg.name} decode after a prefill of {n - 1} "
+                 f"tokens vs the last logits of a prefill of {n}")
+    del short, whole
+    stats = {}
+    by_step = profile_step(torch, lambda p_: model.decode_step(
+        params, cache, fed, p_), n + 1, f"full-width {cfg.name} decode",
+        card, batch=B, stats=stats)
+    da_ms, da_n = kernel_share(by_step, ("decode_attn_kernel",))
+    if round(da_n) != per_step:
+        fail(f"{phase}: {da_n:.0f} decode_attn_kernel launches in a profiled "
+             f"decode step, not {per_step}")
+    out.update(step_busy_ms=stats["busy_ms"], step_wall_ms=stats["wall_ms"],
+               step_decode_attention_ms=da_ms)
+    print(f"[profile] {phase} decode_attention in the decode step: "
+          f"{da_ms * 1e3:.1f} us over {da_n:.0f} launches — {card}")
+    pcache = model.init_cache(B, n + 48, device="cuda")
+
+    def run():
+        model.prefill(params, batch, pcache)
+
+    run()
+    torch.cuda.synchronize()
+    by_prefill = kernel_times(torch, run, 2)
+    out["prefill_busy_ms"] = sum(ms for ms, _ in by_prefill.values())
+    line = (f"[profile] full-width {cfg.name} prefill (B={B}, {n} tokens): "
+            f"device busy {out['prefill_busy_ms']:.2f} ms")
+    if cfg.is_encoder_decoder:
+        by_encoder = kernel_times(
+            torch, lambda: model._encode(params, batch[key]), 2)
+        out["encoder_busy_ms"] = sum(ms for ms, _ in by_encoder.values())
+        line += (f", of which the encoder alone over the same frames "
+                 f"{out['encoder_busy_ms']:.2f} ms")
+    print(f"{line} — {card}", flush=True)
+    print_top(by_encoder if cfg.is_encoder_decoder else by_prefill)
+    del cache, pcache, batch, mems, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch under {ROOT}: run chip_smoke.py from the "
@@ -2931,6 +3252,9 @@ def main() -> int:
                                build.sm_count(0), gen)
     da_times = time_decode_kernel(torch, F, ref, da.decode_attention, gen,
                                   card)
+    cross_times = time_cross_kernel(torch, F, ref, da.decode_attention, gen,
+                                    card)
+    err_da = max([err_da] + [t[5] for t in cross_times.values()])
     rs_times = time_scan_kernel(torch, ref, rs.rglru_scan, gen, card)
     t_rs, t_rs_p, b_rs, b_rs_by, rs_plan = rs_times[SCAN_SHAPES[0]]
     torch.cuda.empty_cache()
@@ -2999,6 +3323,14 @@ def main() -> int:
     # -- 19. Mamba-2-370m through the bucket engine ------------------------
     stamp(t_start, "phase 19, Mamba-2-370m bucket serving")
     mamba_phase(torch, np, kernels, card)
+
+    # -- 20.-21. cross-attention and encoder-decoder stacks ----------------
+    xattn = {}
+    for phase, arch, lens, n_new in XATTN_PHASES:
+        stamp(t_start, f"phase {phase}, {arch} bucket serving")
+        xattn[arch] = xattn_phase(torch, np, kernels, card, phase, arch,
+                                  lens, n_new)
+        err_da = max(err_da, xattn[arch]["cross_err"])
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     paged_src = "src/repro_torch/csrc/paged_decode_attention.cu"
     print(json.dumps({"kernels": [{
@@ -3092,6 +3424,15 @@ def main() -> int:
         "splits": da.decode_attention.plan[0],
         "launches_moe_bucket": moe["launches_contiguous"],
         "moe_ring_max_abs_err": moe["ring_err"],
+        "launches_llama_vision_bucket": xattn["llama-3.2-vision-11b"][
+            "launches"],
+        "launches_whisper_bucket": xattn["whisper-medium"]["launches"],
+        "cross_by_shape": [{"B": B_, "kv_len": M_, "kv_heads": H_, "G": G_,
+                            "D": D_, "ms": t[0], "plain_ms": t[1],
+                            "library_ms": t[2], "bound_ms": t[3],
+                            "bound_by": t[4], "max_abs_err": t[5]}
+                           for (B_, M_, H_, G_, D_), t in
+                           cross_times.items()],
         "by_shape": [{"B": B_, "kv_len": L_, "ms": t[0], "plain_ms": t[1],
                       "library_ms": t[2], "bound_ms": t[3],
                       "bound_by": t[4]}

@@ -1,1 +1,2 @@
-"""Data helpers of the port (the byte tokenizer)."""
+"""Data helpers of the port: the byte tokenizer and the synthetic data
+pipeline with the image / audio input stubs."""

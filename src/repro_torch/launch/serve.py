@@ -13,10 +13,16 @@ reference draws from ``PRNGKey(0)``, since torch cannot draw JAX's.
 length-bucket baseline over the ring cache; it serves every ported
 arch, the hybrid RG-LRU stack of ``recurrentgemma-2b`` (the contiguous
 decode and RG-LRU scan kernels on the card) and the SSD stack of
-``mamba2-370m`` included.  ``--engine continuous`` is the paged
+``mamba2-370m``, the cross-attention stack of ``llama-3.2-vision-11b``
+and the encoder-decoder stack of ``whisper-medium`` included: each of
+the last two takes its image or audio input as the reference's numpy
+stub (``repro_torch.data.pipeline.stub_image_embeds`` /
+``stub_frames``, seed 0) in every request's ``extra``.
+``--engine continuous`` is the paged
 continuous-batching engine, for uniform self-attention stacks, dense or
-MoE (``phi3.5-moe-42b-a6.6b``, ``grok-1-314b``; an SSD or hybrid stack
-raises ``NotImplementedError``, as in the reference; MoE archs serve at
+MoE (``phi3.5-moe-42b-a6.6b``, ``grok-1-314b``; an SSD, hybrid,
+cross-attention or encoder-decoder stack raises ``NotImplementedError``
+from the paged cache, as in the reference; MoE archs serve at
 a capacity factor of 4.0, as the reference CLI sets); ``--engine async``
 serves the same stack through the live ``AsyncEngine`` (submit/stream on
 a background stepper thread) — add ``--interactive`` for a stdin demo
@@ -57,6 +63,7 @@ yet, so ``--warmup-steps`` must stay 0; tensor-parallel serving
 Examples:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch mamba2-370m
+    python -m repro_torch.launch.serve --arch whisper-medium
     python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b \\
         --engine continuous
     python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous
@@ -304,6 +311,7 @@ def main(argv=None) -> int:
     import torch
 
     from ..configs import list_archs
+    from ..data.pipeline import stub_frames, stub_image_embeds
     from ..data.tokenizer import ByteTokenizer
     from ..quant import QuantPolicy
     from ..serving import (AsyncEngine, ContinuousServingEngine, Request,
@@ -336,7 +344,15 @@ def main(argv=None) -> int:
                               "the kv cache streams", "one thread gathers"]
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         max_new_tokens=args.max_new)
-    reqs = [Request(uid=i, prompt=tok.encode(p), sampling=sp)
+    # the model names the input its cross-attention reads (if any); every
+    # request carries that input's seed-0 stub, as the reference CLI does
+    stubs = {"frames": lambda: stub_frames(1, cfg.n_audio_frames,
+                                           cfg.d_model)[0],
+             "image_embeds": lambda: stub_image_embeds(
+                 1, cfg.n_image_tokens, cfg.d_model)[0]}
+    key = model.memory_input
+    reqs = [Request(uid=i, prompt=tok.encode(p), sampling=sp,
+                    extra={key: stubs[key]()} if key else {})
             for i, p in enumerate(prompts)]
     max_len = max(len(r.prompt) for r in reqs) + args.max_new + 8
     tracer = None

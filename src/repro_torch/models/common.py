@@ -50,16 +50,40 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(dt) * (1.0 + gain.to(dt))
 
 
+def layer_norm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (Whisper's): statistics in float32, the normalised x
+    cast to the working dtype, then times the gain plus the bias, as the
+    reference orders it."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * gain.to(dt) + bias.to(dt)
+
+
 # ----------------------------------------------------------------------
 # MLP
 # ----------------------------------------------------------------------
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``torch.promote_types`` of the two: jnp promotes a
+    mixed product (the float32 image / audio stubs against bfloat16
+    weights) to float32, where torch refuses it."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def proj(x: torch.Tensor, w: Any, qmm=None) -> torch.Tensor:
-    """``x @ w`` with an optional quantized-matmul hook: the serving
-    runner's Q4_0 mode passes ``qmm`` (``repro_torch.quant.make_qmm``)
-    so a projection leaf may be a packed-code subtree instead of a dense
-    tensor; every other path leaves ``qmm=None``."""
-    return x @ w if qmm is None else qmm(x, w)
+    """``x @ w`` (:func:`matmul`) with an optional quantized-matmul hook:
+    the serving runner's Q4_0 mode passes ``qmm``
+    (``repro_torch.quant.make_qmm``) so a projection leaf may be a
+    packed-code subtree instead of a dense tensor; every other path
+    leaves ``qmm=None``."""
+    return matmul(x, w) if qmm is None else qmm(x, w)
 
 
 def mlp(params: Params, x: torch.Tensor, act: str,

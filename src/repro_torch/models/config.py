@@ -14,10 +14,11 @@ vlm / audio).  The per-layer structure is a tuple of *layer kinds*:
 
 If every layer has the same kind the stack is *uniform*: its
 parameters are stacked with a leading layer axis.  The port serves
-self-attention ("attn") stacks with an MLP or MoE FFN, the hybrid RG-LRU
-+ local-attention stacks of RecurrentGemma ("rglru" with "attn") and
-the Mamba-2 SSD stack ("ssd"); "xattn" and encoder-decoder stacks are
-described here so configs and parameter counts match the reference
+every kind: self-attention ("attn") stacks with an MLP or MoE FFN, the
+hybrid RG-LRU + local-attention stacks of RecurrentGemma ("rglru" with
+"attn"), the Mamba-2 SSD stack ("ssd"), Llama-3.2-Vision's
+cross-attention layers ("xattn") and Whisper's encoder-decoder stack,
+with configs and parameter counts as in the reference
 (``repro.models.config``).
 
 Attention *metadata* (sliding window, RoPE base) is per-layer data, not

@@ -3,7 +3,8 @@
 ``build_model(cfg)`` returns a :class:`Model` exposing
 
     init(gen)                                  -> params
-    init_cache(B, max_len, cache_len=None)     -> ring cache (zeros)
+    init_cache(B, max_len, cache_len=None, memory_len=0)
+                                               -> ring cache (zeros)
     init_cache(B, max_len, page_size=..., kv_dtype="fp32"|"int8")
                                                -> paged cache (zeros)
     prefill(params, batch, cache)              -> (logits, cache)
@@ -15,9 +16,13 @@
                                                -> (logits, cache)
 
 for decoder stacks of self-attention ("attn") and RG-LRU ("rglru")
-layers with an MLP or MoE FFN, and of Mamba-2 SSD ("ssd") layers:
-Qwen3, Gemma3, the bench-tiny model, Phi-3.5-MoE, Grok-1,
-RecurrentGemma and Mamba-2.  Per-layer sliding window and RoPE base stay
+layers with an MLP or MoE FFN, of Mamba-2 SSD ("ssd") layers and of
+tanh-gated cross-attention ("xattn") layers with an MLP, and for
+encoder-decoder stacks: Qwen3, Gemma3, the bench-tiny model,
+Phi-3.5-MoE, Grok-1, RecurrentGemma, Mamba-2, Llama-3.2-Vision (every
+fifth layer attends to the image embeddings) and Whisper (a
+bidirectional encoder over the audio frames; every decoder layer
+attends to its output).  Per-layer sliding window and RoPE base stay
 metadata (``cfg.layer_windows`` / ``cfg.layer_thetas``), so Gemma3's 5:1
 local:global pattern is one uniform stack.
 
@@ -26,8 +31,12 @@ the reference's three forms: a uniform stack keeps one layer dict with
 a leading L axis; a periodic pattern of at least two periods
 (RecurrentGemma's (R, R, A)) keeps ``{"blocks": [...], "tail": [...]}``
 with one dict per pattern position stacked over the full periods and
-the remainder layers unstacked; any other pattern is a list of layer
-dicts.  Projections are ``(d_in, d_out)`` applied as ``x @ w``.
+the remainder layers unstacked (Llama-3.2-Vision's (4 attn, 1 xattn)
+period too); any other pattern is a list of layer dicts.  An
+encoder-decoder model adds an ``encoder`` subtree (its layers stacked,
+and its final norm).  Projections are ``(d_in, d_out)`` applied as
+``x @ w``, in the promoted type of the two (``common.matmul``), as jnp
+promotes the float32 image / audio stubs against bfloat16 weights.
 ``repro_torch.models.weights`` converts the reference's ``Model.init``
 tree, so both packages compute the same function in the tests.  Where
 the reference scans over stacked layers (``_run_uniform`` /
@@ -43,14 +52,18 @@ API parity:
   attention layer ``k``/``v`` (B, M, Hkv, D) and ``pos`` (M,) int32
   (slot = position mod M, -1 = empty), per RG-LRU layer ``h`` (B, W)
   float32 and the conv tail, per SSD layer ``state`` (B, H, P, N)
-  float32 and the conv tail.  ``prefill`` fills it; the scalar-position
-  ``decode_step`` reads it through ``kernels.ops.gqa_decode_attention``
-  (the contiguous decode kernel on the card), and every prefill runs
-  the RG-LRU recurrence through ``kernels.ops.rglru_linear_scan``;
+  float32 and the conv tail; a cross-attention layer holds nothing.
+  ``prefill`` fills it, and stores the cross-attention memory (the image
+  embeddings, or the encoder's output, computed once) as
+  ``cache["memory"]``; the scalar-position ``decode_step`` reads the
+  ring, and the memory with every slot valid (the TPU kernel's
+  ``kv_len`` form), through ``kernels.ops.gqa_decode_attention`` (the
+  contiguous decode kernel on the card), and every prefill runs the
+  RG-LRU recurrence through ``kernels.ops.rglru_linear_scan``;
 * the paged cache of the continuous engine (see :meth:`Model.init_cache`),
   a list of per-layer page-pool buffers written row by row
-  (``index_copy_``), for uniform self-attention stacks only (as in the
-  reference).
+  (``index_copy_``), for uniform self-attention stacks without
+  cross-attention only (as in the reference).
 
 Quantized serving: ``Model.qmm`` (default ``None``) is the reference's
 quantized-matmul hook.  ``ModelRunner`` installs
@@ -65,12 +78,12 @@ MoE layers (``repro_torch.models.moe``) take the reference's
 ``cfg.moe_impl`` and ``cfg.capacity_factor``; each layer's router aux
 loss is summed over the stack as in the reference under
 ``_run_layers(with_aux=True)``; the serving entry points discard it, so
-they leave it off and launch nothing for it.  Not part of the port yet (``NotImplementedError``
-naming the arch): cross-attention layers and encoder-decoder stacks.
+they leave it off and launch nothing for it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -78,8 +91,8 @@ import torch
 from ..kernels.ops import gqa_decode_attention, paged_gqa_decode_attention
 from ..quant.kv_int8 import dequantize_rows, quantize_rows
 from .attention import flash_attention
-from .common import (Params, dense_init, embed_init, mlp, proj, rms_norm,
-                     unembed)
+from .common import (Params, dense_init, embed_init, layer_norm, mlp, proj,
+                     rms_norm, unembed)
 from .config import ModelConfig
 from .moe import init_moe, moe
 from .recurrent import RGLRUState, init_rglru_block, rglru_block
@@ -101,10 +114,23 @@ def _index_tree(tree: Any, i: int) -> Any:
 
 def _init_norm(cfg: ModelConfig, d: int, device: Any,
                lead: tuple = ()) -> Params:
-    return {"g": torch.zeros(lead + (d,), dtype=cfg.dtype, device=device)}
+    """RMSNorm's zero-centred gain; Whisper ("audio") takes LayerNorm with
+    a unit gain and a zero bias, as in the reference."""
+    shape = lead + (d,)
+    if cfg.arch_type == "audio":
+        return {"g": torch.ones(shape, dtype=cfg.dtype, device=device),
+                "b": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    return {"g": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
-def _init_attn(gen: torch.Generator, cfg: ModelConfig, lead: tuple) -> Params:
+def _apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "b" in p:
+        return layer_norm(x, p["g"], p["b"], cfg.norm_eps)
+    return rms_norm(x, p["g"], cfg.norm_eps)
+
+
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, lead: tuple, *,
+               cross: bool = False) -> Params:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     qdim, kvdim = cfg.n_heads * hd, cfg.n_kv_heads * hd
     dev = gen.device
@@ -120,6 +146,8 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig, lead: tuple) -> Params:
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros(lead + (hd,), dtype=cfg.dtype, device=dev)
         p["k_norm"] = torch.zeros(lead + (hd,), dtype=cfg.dtype, device=dev)
+    if cross:                          # tanh-gated cross-attention
+        p["gate"] = torch.zeros(lead, dtype=cfg.dtype, device=dev)
     return p
 
 
@@ -145,9 +173,11 @@ def _init_ffn(gen: torch.Generator, cfg: ModelConfig, lead: tuple) -> Params:
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
-                lead: tuple = ()) -> Params:
+                lead: tuple = (), *, decoder_cross: bool = False) -> Params:
     """One layer's parameters, stacked over ``lead``: "attn" or "rglru"
-    with an MLP or MoE FFN, or "ssd" (the Mamba-2 block, no FFN)."""
+    with an MLP or MoE FFN, "xattn" (cross-attention with a dense MLP),
+    or "ssd" (the Mamba-2 block, no FFN).  ``decoder_cross`` (Whisper's
+    decoder) adds a cross-attention and its norm to an "attn" layer."""
     dev = gen.device
     p: Params = {"ln1": _init_norm(cfg, cfg.d_model, dev, lead)}
     if kind == "ssd":
@@ -157,8 +187,16 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
                             conv_width=cfg.ssm_conv, dtype=cfg.dtype,
                             lead=lead)
         return p
+    if kind == "xattn":
+        p["xattn"] = _init_attn(gen, cfg, lead, cross=True)
+        p["ln2"] = _init_norm(cfg, cfg.d_model, dev, lead)
+        p["mlp"] = _init_mlp(gen, cfg, lead)
+        return p
     if kind == "attn":
         p["attn"] = _init_attn(gen, cfg, lead)
+        if decoder_cross:
+            p["ln_x"] = _init_norm(cfg, cfg.d_model, dev, lead)
+            p["xattn"] = _init_attn(gen, cfg, lead, cross=True)
     else:
         p["rglru"] = init_rglru_block(gen, cfg.d_model,
                                       cfg.lru_width or cfg.d_model,
@@ -364,18 +402,52 @@ def _ring_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
                positions: torch.Tensor, theta: float, window: int,
-               cache: Dict[str, torch.Tensor], *,
+               cache: Optional[Dict[str, torch.Tensor]], *,
                paged: Optional[Dict[str, Any]],
-               ring: Optional[Dict[str, Any]], qmm=None) -> torch.Tensor:
+               ring: Optional[Dict[str, Any]], qmm=None,
+               causal: bool = True) -> torch.Tensor:
+    """Self-attention of one layer.  Without a cache (Whisper's encoder,
+    ``causal=False``) it attends over its own K/V and writes nothing."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, ap, x, x, qmm)
     q = _rope(q, positions, theta)
     k = _rope(k, positions, theta)
-    if paged is not None:
+    if cache is None:
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              chunk=ATTN_CHUNK,
+                              softcap=cfg.attn_logit_softcap)
+    elif paged is not None:
         out = _paged_attn(cfg, q, k, v, window, cache, paged)
     else:
         out = _ring_attn(cfg, q, k, v, positions, window, cache, ring)
     return proj(out.reshape(B, S, -1), ap["w_o"], qmm)
+
+
+def _cross_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
+                memory: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Tanh-gated cross-attention of ``x`` (B, S, d) over the memory
+    (B, M, d): the image embeddings, or the encoder's output.
+
+    K/V are projected from the memory on every call, as the reference
+    does (no RoPE, never cached).  A float32 memory gives float32 K/V
+    against a ``cfg.dtype`` query, as jnp promotes them.  Prefill (S > 1)
+    attends through ``flash_attention(causal=False)``; a decode step's
+    single query reads all M slots through
+    ``kernels.ops.gqa_decode_attention`` in the TPU kernel's ``kv_len``
+    form (the contiguous decode kernel on the card; ``impl="ref"``: the
+    plain version), the same function.  The output is scaled by
+    ``tanh(gate)``, computed in float32 and cast to the output's type."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, ap, x, memory)
+    if S == 1:
+        out = gqa_decode_attention(q, k, v, kv_len=memory.shape[1],
+                                   impl=impl)
+    else:
+        out = flash_attention(q, k, v, causal=False, chunk=ATTN_CHUNK)
+    out = proj(out.reshape(B, S, -1), ap["w_o"])
+    if "gate" in ap:
+        out = torch.tanh(ap["gate"].float()).to(out.dtype) * out
+    return out
 
 
 def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor, qmm=None, *,
@@ -393,17 +465,27 @@ def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor, qmm=None, *,
 
 def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
                    positions: torch.Tensor, theta: float, window: int,
-                   cache: Dict[str, Any], *,
+                   cache: Optional[Dict[str, Any]], *,
+                   memory: Optional[torch.Tensor] = None,
                    paged: Optional[Dict[str, Any]] = None,
                    ring: Optional[Dict[str, Any]] = None,
-                   qmm=None, with_aux: bool = False,
+                   qmm=None, with_aux: bool = False, causal: bool = True,
                    ) -> Tuple[torch.Tensor, Any]:
     """One pre-norm block: x + mixer(norm(x)), then x + ffn(norm(x));
     returns (x, the FFN's router aux loss, as :func:`_ffn`).  The mixer
-    is self-attention, the RG-LRU block or the SSD block, whose new state
-    is copied into the cache; an SSD layer has no FFN.  As in the
-    reference, only attention layers take the quantized-matmul hook."""
-    h = rms_norm(x, lp["ln1"]["g"], cfg.norm_eps)
+    is self-attention, cross-attention over ``memory`` ("xattn", with a
+    dense MLP), the RG-LRU block or the SSD block, whose new state is
+    copied into the cache; an SSD layer has no FFN.  An "attn" layer
+    with its own ``xattn`` (Whisper's decoder) attends to the memory
+    after itself.  ``cache=None`` is the encoder's cache-less layer.  As
+    in the reference, only self-attention and its FFN take the
+    quantized-matmul hook."""
+    h = _apply_norm(cfg, lp["ln1"], x)
+    impl = ring["impl"] if ring is not None else "auto"
+    if kind == "xattn":
+        x = x + _cross_attn(cfg, lp["xattn"], h, memory, impl)
+        h2 = _apply_norm(cfg, lp["ln2"], x)
+        return x + mlp(lp["mlp"], h2, cfg.act), 0.0
     if kind == "ssd":
         st = cache["ssd"]
         y, new = ssd_block(lp["ssd"], h, n_heads=cfg.ssm_heads,
@@ -415,7 +497,11 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
         return x + y, 0.0
     if kind == "attn":
         x = x + _self_attn(cfg, lp["attn"], h, positions, theta, window,
-                           cache["self"], paged=paged, ring=ring, qmm=qmm)
+                           None if cache is None else cache["self"],
+                           paged=paged, ring=ring, qmm=qmm, causal=causal)
+        if "xattn" in lp:
+            hx = _apply_norm(cfg, lp["ln_x"], x)
+            x = x + _cross_attn(cfg, lp["xattn"], hx, memory, impl)
     else:
         st = cache["rglru"]
         y, new = rglru_block(lp["rglru"], h, state=RGLRUState(**st),
@@ -425,7 +511,7 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
         st["conv"].copy_(new.conv)
         x = x + y
         qmm = None
-    h2 = rms_norm(x, lp["ln2"]["g"], cfg.norm_eps)
+    h2 = _apply_norm(cfg, lp["ln2"], x)
     f, aux = _ffn(cfg, lp, h2, qmm, with_aux=with_aux)
     return x + f, aux
 
@@ -435,24 +521,29 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
 # ----------------------------------------------------------------------
 
 class Model:
-    """Self-attention / RG-LRU / SSD decoder stack over a ModelConfig."""
+    """Decoder stack (self-attention / cross-attention / RG-LRU / SSD
+    layers), with Whisper's encoder, over a ModelConfig."""
 
     def __init__(self, cfg: ModelConfig) -> None:
         kinds = cfg.layer_kinds
-        other = sorted(set(kinds) - {"attn", "rglru", "ssd"})
-        if cfg.is_encoder_decoder or other:
-            raise NotImplementedError(
-                f"arch {cfg.name!r} has layer kinds {sorted(set(kinds))} "
-                f"(encoder-decoder={cfg.is_encoder_decoder}); the port "
-                "serves self-attention, RG-LRU and SSD decoder stacks only")
+        unknown = sorted(set(kinds) - {"attn", "xattn", "rglru", "ssd"})
+        if unknown:
+            raise ValueError(f"arch {cfg.name!r}: unknown layer kinds "
+                             f"{unknown}")
         self.cfg = cfg
         self.kinds = kinds
         self.uniform = cfg.uniform
+        self.decoder_cross = cfg.is_encoder_decoder
+        #: the ``Request.extra`` input the model attends to, if any
+        self.memory_input = ("frames" if cfg.is_encoder_decoder
+                             else "image_embeds" if cfg.cross_attn_every
+                             else None)
         # a periodic pattern of at least two periods (RecurrentGemma's
-        # (R, R, A)) keeps its layers as super-blocks plus a tail
+        # (R, R, A), Llama-3.2-Vision's (4 attn, 1 xattn)) keeps its
+        # layers as super-blocks plus a tail
         self.block_period = 0
         if not self.uniform:
-            p = len(cfg.block_pattern)
+            p = len(cfg.block_pattern) or cfg.cross_attn_every
             if p and cfg.n_layers >= 2 * p:
                 self.block_period = p
         self.n_full_blocks = (cfg.n_layers // self.block_period
@@ -479,7 +570,8 @@ class Model:
                                            cfg.dtype, device=dev)
         if self.uniform:
             params["layers"] = _init_layer(gen, cfg, self.kinds[0],
-                                           (cfg.n_layers,))
+                                           (cfg.n_layers,),
+                                           decoder_cross=self.decoder_cross)
         elif self.block_period:
             p_, nb = self.block_period, self.n_full_blocks
             params["layers"] = {
@@ -490,12 +582,20 @@ class Model:
         else:
             params["layers"] = [_init_layer(gen, cfg, kind)
                                 for kind in self.kinds]
+        if cfg.is_encoder_decoder:
+            enc_cfg = dataclasses.replace(cfg, n_experts=0)
+            params["encoder"] = {
+                "layers": _init_layer(gen, enc_cfg, "attn",
+                                      (cfg.n_encoder_layers,)),
+                "final_norm": _init_norm(cfg, cfg.d_model, dev)}
         return params
 
     # ------------------------------------------------------------------
     def _layer_cache(self, kind: str, batch: int, cache_len: int,
                      device: Any, lead: tuple = ()) -> Dict[str, Any]:
         cfg = self.cfg
+        if kind == "xattn":
+            return {}
         if kind == "attn":
             shape = lead + (batch, cache_len, cfg.n_kv_heads,
                             cfg.resolved_head_dim)
@@ -524,6 +624,7 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, *,
                    cache_len: Optional[int] = None,
+                   memory_len: int = 0,
                    page_size: Optional[int] = None,
                    n_pages: Optional[int] = None,
                    kv_dtype: str = "fp32",
@@ -539,10 +640,16 @@ class Model:
         ``h`` (batch, W) float32 and ``conv`` (batch, conv_width-1, W);
         each SSD layer ``state`` (batch, H, P, N) float32 and ``conv``
         (batch, conv_width-1, d_inner + 2·G·N).  ``length`` is a 0-d
-        int32 tensor (tokens seen).
+        int32 tensor (tokens seen).  A cross-attention layer holds
+        nothing: ``prefill`` stores the memory it attends to as
+        ``memory`` (batch, M, d_model), in the type it came in;
+        ``memory_len`` allocates that entry at zero in ``cfg.dtype``; it
+        exists for signature parity with the reference only, since
+        ``prefill`` replaces the entry whole.
 
         With ``page_size``: the **paged** cache of the continuous engine,
-        uniform self-attention stacks only (as in the reference):
+        uniform self-attention stacks without cross-attention only (as in
+        the reference):
 
         * ``layers[i]['self']['k'/'v']`` — (n_pages * page_size, Hkv, D)
           page-pool buffer of layer ``i`` in ``cfg.dtype`` (page 0 is
@@ -567,8 +674,14 @@ class Model:
             raise ValueError(f"kv_dtype={kv_dtype!r}: choose 'fp32' or "
                              "'int8'")
         if page_size is None:
-            return self._init_ring_cache(batch, max_len, cache_len, device)
-        if not (self.uniform and self.kinds[0] == "attn"):
+            cache = self._init_ring_cache(batch, max_len, cache_len, device)
+            if memory_len:
+                cache["memory"] = torch.zeros(
+                    (batch, memory_len, cfg.d_model), dtype=cfg.dtype,
+                    device=device)
+            return cache
+        if not (self.uniform and self.kinds[0] == "attn"
+                and not self.decoder_cross and not cfg.cross_attn_every):
             raise NotImplementedError(
                 "paged KV cache requires a uniform self-attention stack "
                 f"(arch {cfg.name!r} has kinds {self.kinds[:4]})")
@@ -646,14 +759,16 @@ class Model:
     def _run_layers(self, params: Params, x: torch.Tensor,
                     positions: torch.Tensor, caches: Any, *,
                     window_override: Optional[int],
+                    memory: Optional[torch.Tensor] = None,
                     paged: Optional[Dict[str, Any]] = None,
                     ring: Optional[Dict[str, Any]] = None,
                     with_aux: bool = False,
                     ) -> Tuple[torch.Tensor, Any]:
-        """Unrolled layer loop; each layer updates its cache in place.
-        Returns (x, the stack's summed router aux loss: 0.0 without MoE
-        layers or without ``with_aux``; the serving steps discard it, so
-        they leave it off)."""
+        """Unrolled layer loop; each layer updates its cache in place, and
+        the cross-attention layers attend to ``memory``.  Returns (x, the
+        stack's summed router aux loss: 0.0 without MoE layers or without
+        ``with_aux``; the serving steps discard it, so they leave it
+        off)."""
         cfg = self.cfg
         windows = list(cfg.layer_windows(0))
         thetas = list(cfg.layer_thetas())
@@ -662,11 +777,37 @@ class Model:
         aux = 0.0
         for i, lp, cache in self._layer_views(params["layers"], caches):
             x, a = _layer_forward(cfg, self.kinds[i], lp, x, positions,
-                                  thetas[i], windows[i], cache, paged=paged,
-                                  ring=ring, qmm=self.qmm,
-                                  with_aux=with_aux)
+                                  thetas[i], windows[i], cache,
+                                  memory=memory, paged=paged, ring=ring,
+                                  qmm=self.qmm, with_aux=with_aux)
             aux = aux + a
         return x, aux
+
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over the frame embeddings (B, F, d): its
+        stacked layers, bidirectional, no window, RoPE at
+        ``cfg.rope_theta``, no cache, then its final norm.  Float32
+        frames keep the residual stream and the output float32 over
+        ``cfg.dtype`` weights, as in the reference."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        positions = torch.arange(frames.shape[1], device=frames.device)
+        x = frames
+        for i in range(cfg.n_encoder_layers):
+            x, _ = _layer_forward(cfg, "attn", _index_tree(enc["layers"], i),
+                                  x, positions, cfg.rope_theta, 0, None,
+                                  causal=False)
+        return _apply_norm(cfg, enc["final_norm"], x)
+
+    def _memory_from_batch(self, params: Params, batch: Dict[str, Any],
+                           ) -> Optional[torch.Tensor]:
+        """What the cross-attention layers attend to: the encoder's output
+        over ``batch['frames']``, or ``batch['image_embeds']`` as given."""
+        if self.memory_input is None:
+            return None
+        memory = batch[self.memory_input]
+        return (self._encode(params, memory) if self.cfg.is_encoder_decoder
+                else memory)
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         # JAX clamps out-of-range gathers; torch would raise, so clamp
@@ -674,7 +815,7 @@ class Model:
         return params["embed"][ids]
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, params["final_norm"]["g"], self.cfg.norm_eps)
+        x = _apply_norm(self.cfg, params["final_norm"], x)
         head = (params["embed"] if self.cfg.tie_embeddings
                 else params["lm_head"])
         return unembed(head, x, tied=self.cfg.tie_embeddings)
@@ -686,15 +827,23 @@ class Model:
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Process the prompts ``batch['tokens']`` (B, S) at positions
         0..S-1 into a fresh ring cache; return the last token's logits
-        (B, 1, V).  ``impl`` picks the RG-LRU scan ("auto": the kernel
-        on CUDA tensors; "ref": the plain version)."""
+        (B, 1, V).  A cross-attention model reads its memory from
+        ``batch['image_embeds']`` (B, M, d) or encodes
+        ``batch['frames']`` (B, F, d) here, once, and keeps it as
+        ``cache['memory']`` for the decode steps.  ``impl`` picks the
+        RG-LRU scan ("auto": the kernel on CUDA tensors; "ref": the plain
+        version)."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         ring = {"q_pos": None, "single_step": False, "impl": impl}
+        memory = self._memory_from_batch(params, batch)
         x, _ = self._run_layers(params, x, positions, cache["layers"],
-                                window_override=window_override, ring=ring)
+                                window_override=window_override,
+                                memory=memory, ring=ring)
         cache["length"].fill_(tokens.shape[1])
+        if memory is not None:
+            cache["memory"] = memory
         return self._logits(params, x[:, -1:]), cache
 
     def prefill_paged(self, params: Params, batch: Dict[str, Any],
@@ -759,7 +908,8 @@ class Model:
         (``page_size`` given): ``pos`` (B,) is each slot's absolute
         position, ``pos[b] < 0`` marks an idle slot (its write goes to
         the scratch page, its attention is fully masked).  ``impl``
-        picks the decode attention ("auto": the kernel on CUDA tensors;
+        picks the decode attention, of the ring and of the memory in
+        ``cache['memory']`` alike ("auto": the kernel on CUDA tensors;
         "ref": the plain version)."""
         if page_size is not None:
             return self._decode_step_paged(params, cache, tokens, pos,
@@ -771,7 +921,8 @@ class Model:
         positions = torch.arange(pos, pos + 1, device=tokens.device)
         ring = {"q_pos": pos, "single_step": True, "impl": impl}
         x, _ = self._run_layers(params, x, positions, cache["layers"],
-                                window_override=window_override, ring=ring)
+                                window_override=window_override,
+                                memory=cache.get("memory"), ring=ring)
         cache["length"].fill_(pos + 1)
         return self._logits(params, x), cache
 

@@ -7,6 +7,12 @@ one after another and no request joins mid-decode; the paged
 continuous engine (``repro_torch.serving.continuous``) is the
 production path, and both give the same greedy tokens.
 
+A cross-attention model's requests carry its image or audio input as
+``Request.extra`` (``{"image_embeds": (M, d)}`` or ``{"frames": (F,
+d)}``, numpy arrays or tensors), stacked across the bucket on the batch
+axis in their own dtype; the model computes the memory once, at
+prefill, and keeps it in the ring cache.
+
 Device execution lives behind :class:`~repro_torch.serving.runner.BucketRunner`
 (``device="cuda"`` unless the caller passes ``device="cpu"``).  Sampling
 draws from one explicit ``torch.Generator`` on the runner's device,
@@ -115,11 +121,13 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def generate(self, requests: Sequence[Request], *,
                  max_batch: int = 8) -> List[Completion]:
+        want = self.model.memory_input
         for r in requests:
-            if r.extra:
-                raise NotImplementedError(
-                    f"request {r.uid}: extra inputs {sorted(r.extra)} "
-                    "(image / audio stubs) are not ported yet")
+            if sorted(r.extra) != ([want] if want else []):
+                raise ValueError(
+                    f"request {r.uid}: extra inputs {sorted(r.extra)}; "
+                    f"arch {self.model.cfg.name!r} reads "
+                    f"{repr(want) if want else 'none'}")
         out: List[Completion] = []
         wall0 = time.perf_counter()
         prefill_total = 0.0
@@ -139,11 +147,14 @@ class ServingEngine:
         plen = len(bucket[0].prompt)
         tokens = torch.tensor([r.prompt for r in bucket], dtype=torch.long,
                               device=self.device)
+        batch: Dict[str, Any] = {"tokens": tokens}
+        for k in bucket[0].extra:
+            batch[k] = _stack([r.extra[k] for r in bucket], self.device)
         cache = self.runner.init_cache(B, self.max_len,
                                        cache_len=self.cache_len)
 
         t0 = time.perf_counter()
-        logits, cache = self.runner.prefill({"tokens": tokens}, cache)
+        logits, cache = self.runner.prefill(batch, cache)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
@@ -176,6 +187,16 @@ class ServingEngine:
                            prefill_s=t_prefill, t0=t0, t1=t1,
                            t_first=t_first, t_sched=t0)
                 for b, r in enumerate(bucket)]
+
+
+def _stack(values: Sequence[Any], device: torch.device) -> torch.Tensor:
+    """One ``extra`` input of a bucket's requests, stacked on a new batch
+    axis as a tensor on ``device`` in the inputs' own dtype: tensors as
+    they are, anything else through numpy."""
+    if all(isinstance(v, torch.Tensor) for v in values):
+        return torch.stack([v.to(device) for v in values])
+    return torch.from_numpy(np.stack([np.asarray(v) for v in values])).to(
+        device)
 
 
 def throughput_report(completions: Sequence[Completion], *,

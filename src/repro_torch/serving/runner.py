@@ -236,8 +236,12 @@ class BucketRunner:
         self.window_override = window_override
 
     def init_cache(self, batch: int, max_len: int, *,
-                   cache_len: Optional[int] = None) -> Dict[str, Any]:
+                   cache_len: Optional[int] = None,
+                   memory_len: int = 0) -> Dict[str, Any]:
+        # memory_len is there for signature parity with the reference
+        # runner: prefill stores the memory whole, so no caller sets it
         return self.model.init_cache(batch, max_len, cache_len=cache_len,
+                                     memory_len=memory_len,
                                      device=self.device)
 
     def prefill(self, batch: Dict[str, Any], cache: Dict[str, Any]):

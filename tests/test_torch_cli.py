@@ -87,6 +87,70 @@ def test_port_cli_prints_the_reference_cli_text_for_moe_and_ssd(
     assert got == want
 
 
+#: the reference CLI with every cross-attention gate of its ``Model.init``
+#: weights drawn nonzero (``test_torch_xattn.live_gates``): at the init's
+#: zero gates both CLIs would ignore the image or the audio
+_REFERENCE_LIVE_GATES = """
+import sys
+import jax
+import numpy as np
+import repro.models.transformer as T
+from repro.launch.serve import main
+from test_torch_xattn import live_gates
+_init = T.Model.init
+T.Model.init = lambda self, key: jax.tree.map(
+    jax.numpy.asarray, live_gates(jax.tree.map(np.asarray, _init(self, key))))
+sys.exit(main())
+"""
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-medium"])
+def test_port_cli_prints_the_reference_cli_text_for_xattn_and_whisper(
+        arch, tmp_path):
+    """The cross-attention stack (each request's image stub) and the
+    encoder-decoder stack (each request's frame stub) through the bucket
+    engine, on the reference CLI's ``PRNGKey(0)`` weights with live
+    gates, the same in both CLIs."""
+    from test_torch_xattn import live_gates
+    cfg = jreduced(jget_config(arch))
+    cfg = dataclasses.replace(cfg, dtype=jnp.float32, capacity_factor=4.0,
+                              vocab_size=max(cfg.vocab_size, 259))
+    tree = live_gates(jax.tree.map(np.asarray, jbuild(cfg).init(
+        jax.random.PRNGKey(0))))
+    path = str(tmp_path / f"{arch}-live.npz")
+    save_params_npz(tree, path)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([SRC, os.path.dirname(__file__)]))
+    out = subprocess.run(
+        [sys.executable, "-c", _REFERENCE_LIVE_GATES, "--arch", arch,
+         "--max-new", "8", "--warmup-steps", "0"], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = [ln for ln in out.stdout.splitlines() if ln.startswith("[")]
+    assert len(want) == 4, out.stdout
+    got = _completions("repro_torch.launch.serve",
+                       ["--device", "cpu", "--params", path], arch)
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-medium"])
+def test_continuous_engine_on_xattn_and_whisper_raises_as_the_reference(
+        arch, monkeypatch):
+    """``--engine continuous``: the paged cache refuses a stack with
+    cross-attention, with the reference's error."""
+    from repro.launch.serve import main as ref_main
+    flags = ["--arch", arch, "--engine", "continuous"]
+    monkeypatch.setattr(sys, "argv", ["serve"] + flags +
+                        ["--warmup-steps", "0"])
+    with pytest.raises(NotImplementedError) as want:
+        ref_main()
+    with pytest.raises(NotImplementedError) as got:
+        port_main(flags + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert "paged KV cache requires a uniform self-attention stack" in str(
+        got.value)
+
+
 @pytest.mark.parametrize("engine", ["continuous", "async"])
 def test_paged_engines_on_an_ssd_arch_raise_as_the_reference(
         engine, monkeypatch):

@@ -533,6 +533,42 @@ def test_ring_kernel_at_phi35_moe_decode_shape(n_written):
         assert excess <= 0, (window, err)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,H,G,D", [(6404, 8, 4, 128), (1500, 16, 1, 64)])
+def test_contiguous_kernel_at_the_cross_attention_reads(kv_dtype, M, H, G,
+                                                        D):
+    """A decode step's cross-attention read, through the wrapper the model
+    calls (``ops.gqa_decode_attention(..., kv_len=M)``, the TPU kernel's
+    form): Llama-3.2-Vision's (B = 4, 6404 image tokens, 8 kv heads of
+    G = 4, D = 128) and Whisper's (B = 4, 1500 frames, 16 heads, G = 1,
+    D = 64), a bf16 query over bf16 K/V and over float32 K/V (a bf16 model
+    fed float32 stubs); kv_len M (every slot valid), 1, one past a split
+    chunk's edge and M - 1; and a memory of a single slot."""
+    dev = _device()
+    B = 4
+    q, k, v = _cache_case(M + G, B=B, S=M, H=H, G=G, D=D, dtype=kv_dtype,
+                          dev=dev)
+    q = q.to(torch.bfloat16).reshape(B, 1, H * G, D)
+    blocks = B * H * -(-G // kda.contiguous_heads_per_block(G))
+    n_split, chunk = kda.contiguous_split_plan(
+        M, G, D, k.element_size(), blocks, build.sm_count(dev.index or 0))
+    assert n_split > 1, (n_split, chunk)
+    cases = [(k, v, L) for L in (M, 1, chunk + 1, M - 1)]
+    cases.append((k[:, :1].contiguous(), v[:, :1].contiguous(), 1))
+    for kk, vv, kv_len in cases:
+        before = decode_attention.launches
+        got = ops.gqa_decode_attention(q, kk, vv, kv_len=kv_len)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        want = tref.decode_attention_ref(q.reshape(B, H, G, D), kk, vv,
+                                         kv_len)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        excess, err = _max_excess(got.reshape(want.shape), want,
+                                  torch.ones_like(want, dtype=torch.bool))
+        assert excess <= 0, (kv_len, kk.shape[1], err)
+
+
 #: head groups G at head dims D, both cache types: every G * D the
 #: wrapper takes (G * D <= 4096)
 _GROUPS = [(G, D) for G in (1, 2, 4, 8, 10, 16, 32) for D in (32, 128, 256)

@@ -332,6 +332,12 @@ class TestHttpOverload:
             assert resp.status == 200   # slot free again -> serves
             conn.close()
             assert fe.registry.get("http.shed").value() == 1
+            # the handler releases its slot after the response is sent,
+            # so the client can read the response first
+            t0 = time.time()
+            while (fe.registry.get("http.inflight").value()
+                   and time.time() - t0 < 10):
+                time.sleep(0.01)
             assert fe.registry.get("http.inflight").value() == 0
         finally:
             fe.close()

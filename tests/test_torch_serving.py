@@ -346,6 +346,9 @@ def test_port_imports_without_jax_or_the_reference():
         "import repro_torch.serving.async_engine, repro_torch.obs.validate\n"
         "import repro_torch.configs.granite_3_8b\n"
         "import repro_torch.configs.qwen2_72b, repro_torch.configs.shapes\n"
+        "import repro_torch.data.pipeline\n"
+        "import repro_torch.configs.llama32_vision_11b\n"
+        "import repro_torch.configs.whisper_medium\n"
         "from repro_torch.serving import ServingEngine, BucketRunner\n"
         "from repro_torch.serving import AsyncEngine, AsyncEngineError\n"
         "from repro_torch.models.weights import load_params_npz\n"
