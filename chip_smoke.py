@@ -208,7 +208,36 @@ non-zero if any phase fails, or if no CUDA device is present:
     encoder runs twice), 32 tokens each; the contiguous kernel 48 times
     a decode step (24 ring + 24 cross-attention reads); the same checks
     and numbers, and the encoder's device time over the prefill's
-    frames.
+    frames;
+22. training at full width (``repro_torch.training``), after every
+    earlier phase's engines and weights are freed:
+    a. full-width, full-depth Qwen3-1.7B (28 layers, bf16, 1.72 B
+       parameters drawn on the card from seed 0), ``make_train_step``
+       with AdamW (lr ``TRAIN_LR``, ``TRAIN_WARMUP`` warm-up steps) on
+       ``PackedLMDataset`` batches of 4 x 512 tokens: 1 warm-up and 4
+       timed steps; every loss and gradient norm
+       finite, the last loss below the first, the parameters moved, and
+       no port kernel launched (the path has none); prints each step's
+       wall time, the mean, tokens/s, the model FLOPs' share of the bf16
+       peak, peak memory, a profiled step's device time and top kernels,
+       and the AdamW update alone timed with CUDA events beside its byte
+       bound;
+    b. full-width, full-depth RecurrentGemma-2B (26 layers) the same way
+       at 2 x 512 tokens; with the counts set to 0 around one train step,
+       the scan kernel's forward mode and its reverse mode (the gradient)
+       must each have launched 18 times (one a RG-LRU layer) and nothing
+       else;
+    c. the reverse mode against its plain version, bit for bit
+       (``SCAN_TOL``): (2, 512, 2560), (4, 512, 2560), (1, 2048, 2560), one
+       step short of and past a stage, W = 36 and a ragged strip (W = 64);
+    d. its time at the first three, inputs rotated past the L2, beside its
+       plain version and its byte bound, and the scan's whole backward
+       (kernel + the elementwise dL/da pass);
+    e. the gradients of one full-width RG-LRU block in float32 (B = 2 x
+       512) with the scan kernels against the plain scans, within
+       ``BLOCK_GRAD_RTOL`` of each leaf's largest |g|.
+    Phase 11's CLI run takes the serve CLI's default ``--warmup-steps
+    40``: it warm-trains on the card before it serves.
 
 The build phase prints nvcc's register and spill report for every
 kernel, and the scan's plan and shared memory at its timed shapes.  It
@@ -222,7 +251,10 @@ launches in phase 10's k=2 run and their device time in a verify step,
 the bf16 paged entry its launches in phases 17a, 17b and 18a and its
 device time a call in 18a's decode step, the contiguous entry its
 launches in 18b, 20 and 21 and its two cross-attention shapes' times,
-the Q4_0 entry its error at 18c's shapes),
+the Q4_0 entry its error at 18c's shapes; the scan entry its launches
+in a train step, and an entry for its reverse mode with its launches in
+a train step, its error, its times by shape and the block gradients'
+error; then the two train runs' numbers under ``training``),
 and as the last line ``{"ok": true, "device":
 {...}}``.  Nothing
 here imports JAX or the reference package.
@@ -657,7 +689,8 @@ def port_kernels():
     from repro_torch.kernels import rglru_scan as rs
     return {"paged_decode_attention": da.paged_decode_attention,
             "q4_gemm": qg.q4_gemm, "decode_attention": da.decode_attention,
-            "rglru_scan": rs.rglru_scan}
+            "rglru_scan": rs.rglru_scan,
+            "rglru_scan_reverse": rs.rglru_scan_reverse}
 
 
 def kernel_times(torch, run, n):
@@ -1582,9 +1615,13 @@ def cli_phase(card):
     if run.returncode != 0:
         fail(f"serve CLI exited {run.returncode}: {run.stderr[-2000:]}")
     lines = [ln for ln in run.stdout.splitlines()
-             if ln.startswith(("arch=", "[", "throughput", "ttft"))]
+             if ln.startswith(("arch=", "warm-up", "[", "throughput",
+                               "ttft"))]
     for ln in lines:
         print(f"[cli]   {ln}")
+    if "warm-up training (40 steps) ..." not in run.stdout:
+        fail("the serve CLI did not warm-train at its default "
+             "--warmup-steps 40")
     check_run = subprocess.run(
         [sys.executable, "-m", "repro_torch.obs.validate", "--metrics",
          str(m), "--trace", str(t), "--require-counter", "spec.drafted"],
@@ -1592,8 +1629,9 @@ def cli_phase(card):
     if check_run.returncode != 0:
         fail(f"obs.validate: {check_run.stdout[-1000:]} "
              f"{check_run.stderr[-1000:]}")
-    print(f"[cli] --engine async --spec-decode {SPEC_K} on the card: exit "
-          f"0 in {wall:.1f} s; metrics and trace validate — {card}")
+    print(f"[cli] --engine async --spec-decode {SPEC_K} on the card, after "
+          f"the default 40 warm-up train steps: exit 0 in {wall:.1f} s; "
+          f"metrics and trace validate — {card}")
 
 
 #: greedy tokens each request of phases 17a and 17b asks for
@@ -2827,6 +2865,321 @@ def xattn_phase(torch, np, kernels, card, phase, arch, lens, n_new):
     return out
 
 
+# ----------------------------------------------------------------------
+# 22. training at full width
+# ----------------------------------------------------------------------
+
+#: AdamW in phase 22: the peak learning rate and its linear warm-up over
+#: the 5 checked steps.  Higher, the first steps from a random init
+#: overshot: Qwen3's loss went 12.3, 7.7, 17.5, 9.1, 7.1 at 1e-3 without a
+#: warm-up, and 12.3, 8.1, 6.2, 8.8, 9.5 at 3e-4 with this one (AdamW's
+#: first updates are ~lr on every weight, whatever its gradient, and a
+#: bf16 weight of ~0.02 moves by whole ulps of 1.2e-4)
+TRAIN_LR = 1e-4
+TRAIN_WARMUP = 5
+#: gradients of one full-width RG-LRU block in float32, scan kernels
+#: against the plain scans: both scans are bit for bit and every other
+#: operation is the same call on the same inputs, so they should agree
+#: exactly; 1e-5 of a leaf's largest |g| leaves room only for a library
+#: matmul that reorders a float32 sum between two calls
+BLOCK_GRAD_RTOL = 1e-5
+#: kernel names of the library GEMMs in a profile (cuBLAS on Hopper)
+GEMM_NAMES = ("nvjet", "gemm", "cutlass", "sm90_xmma")
+#: the reverse scan's timed and checked shapes: the main path's (a train
+#: step of RecurrentGemma-2B at B=2 x 512, and the issue's B=4 x 512),
+#: one prompt at the window length
+REVERSE_SHAPES = ((2, 512, 2560), (4, 512, 2560), (1, 2048, 2560))
+
+
+def train_flops(cfg, n_params, B, S):
+    """Model FLOPs of one train step: 6 x parameters x tokens, plus the
+    attention products (QK^T and PV, 4*B*S^2*H*D a layer forward, the
+    whole square: the port's blockwise attention masks, it does not skip)
+    times 3 for forward and backward; the remat's recomputed forward is
+    not counted."""
+    n_attn = cfg.layer_kinds.count("attn")
+    attn = 3 * 4 * B * S * S * cfg.n_heads * cfg.resolved_head_dim * n_attn
+    return 6 * n_params * B * S + attn
+
+
+def train_steps(torch, step, params, opt_state, batches, n, label, card,
+                kernels=None, count_at=None):
+    """``n`` train steps, each synchronised and timed on the host clock;
+    with ``count_at``, every kernel's launch count set to 0 just before
+    that step and read just after.  Returns (params, opt_state, losses,
+    grad norms, step seconds, launches of the counted step)."""
+    losses, norms, secs, counted_launches = [], [], [], None
+    for i in range(n):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        if count_at == i:
+            for fn in kernels.values():
+                fn.launches = 0
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if count_at == i:
+            counted_launches = {k: fn.launches for k, fn in kernels.items()}
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        print(f"[train] {label} step {i}: loss {losses[-1]:.4f} lr "
+              f"{float(m['lr']):.2e} gnorm {norms[-1]:.3f} "
+              f"{secs[-1] * 1e3:.1f} ms wall — {card}", flush=True)
+    return params, opt_state, losses, norms, secs, counted_launches
+
+
+def check_training(losses, norms, moved, label):
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"{label}: a loss or gradient norm is not finite: {losses} "
+             f"{norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses}")
+    if not moved:
+        fail(f"{label}: the train steps did not move the parameters")
+
+
+def train_model(torch, arch, B, S, card, kernels):
+    """A full-width ``arch`` (bf16, weights drawn on the card from seed 0)
+    and its train step (AdamW at TRAIN_LR after TRAIN_WARMUP steps)
+    over ``PackedLMDataset`` batches of B x S tokens: 1 warm-up step and 4
+    timed steps (the kernels' counts set to 0 around the first timed one),
+    then one step profiled by kernel and the AdamW update timed alone
+    with CUDA events.  Returns the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PackedLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.models.weights import tree_leaves_with_path
+    from repro_torch.training import loop, optimizer
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(0)
+    params = model.init(wgen)
+    torch.cuda.synchronize()
+    leaves = [t for _, t in tree_leaves_with_path(params)]
+    n_params = sum(t.numel() for t in leaves)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"params in {cfg.dtype} ({time.perf_counter() - t0:.1f} s to "
+          f"draw); batches of {B} x {S} tokens", flush=True)
+    probe = leaves[len(leaves) // 2]
+    before = probe.flatten()[:4096].clone()
+    opt_cfg = optimizer.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                    total_steps=100)
+    step = loop.make_train_step(model, opt_cfg)
+    batches = PackedLMDataset(seq_len=S, n_docs=2000,
+                              vocab_size=cfg.vocab_size).batches(B)
+    opt_state = optimizer.adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, losses, norms, secs, launches = train_steps(
+        torch, step, params, opt_state, batches, 5, cfg.name, card,
+        kernels=kernels, count_at=1)
+    peak = torch.cuda.max_memory_allocated()
+    moved = not torch.equal(before, probe.flatten()[:4096])
+    check_training(losses, norms, moved, f"{cfg.name} training")
+    wall_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    flops = train_flops(cfg, n_params, B, S)
+    batch = next(batches)
+
+    def run():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, batch)
+
+    by_kernel = kernel_times(torch, run, 1)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    gemm_ms, gemm_n = kernel_share(by_kernel, GEMM_NAMES)
+    n_all = sum(n for _, n in by_kernel.values())
+    # the AdamW update alone, on one set of gradients
+    for p in leaves:
+        p.requires_grad_(True)
+    bt = loop.batch_to(batch, "cuda")
+    loss, _ = model.loss(params, bt)
+    grads = list(torch.autograd.grad(loss, leaves))
+    for p in leaves:
+        p.requires_grad_(False)
+    del loss
+    gtree = loop._unflatten_like(params, grads)
+    del grads
+    adamw_ms = cuda_ms(torch, lambda i: optimizer.adamw_update(
+        opt_cfg, gtree, opt_state, params), 3, warmup=1)
+    del gtree
+    adamw_bytes = sum(t.numel() * (2 * t.element_size() + 2 * 2 * 4
+                                   + t.element_size()) for t in leaves)
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "B": B, "S": S, "losses": losses, "grad_norms": norms,
+        "step_wall_ms": wall_ms, "step_device_ms": busy,
+        "tokens_per_s": B * S / (wall_ms / 1e3),
+        "model_tflop": flops / 1e12,
+        "bf16_peak_share": flops / PEAK_FLOPS["bfloat16"] / (wall_ms / 1e3),
+        "peak_gib": peak / 2**30, "adamw_ms": adamw_ms,
+        "adamw_bound_ms": adamw_bytes / HBM_BYTES_PER_S * 1e3,
+        "gemm_ms": gemm_ms, "gemm_launches": gemm_n,
+        "device_launches": n_all,
+        "launches": launches, "n_rglru": model.kinds.count("rglru")}
+    print(f"[train] {cfg.name}: step {wall_ms:.1f} ms wall (mean of 4), "
+          f"{busy:.1f} ms device busy in a profiled step ({busy / wall_ms:.0%}"
+          f" of the wall); {out['tokens_per_s']:.0f} tokens/s; "
+          f"{out['model_tflop']:.2f} TFLOP of model work a step, "
+          f"{out['bf16_peak_share']:.1%} of the bf16 peak; the AdamW update "
+          f"alone {adamw_ms:.1f} ms (its byte bound "
+          f"{out['adamw_bound_ms']:.1f} ms); peak memory {peak / 2**30:.2f} "
+          f"GiB; launches in one step {launches} — {card}", flush=True)
+    print(f"[profile] {cfg.name} train step: GEMMs (cuBLAS) {gemm_ms:.1f} ms "
+          f"over {gemm_n:.0f} launches, the other {n_all - gemm_n:.0f} "
+          f"launches {busy - gemm_ms:.1f} ms — {card}")
+    print_top(by_kernel, 10)
+    del params, opt_state, leaves, probe, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_reverse_kernel(torch, ref, kern, plan, sms, gen):
+    """Phase 22c: the scan kernel's reverse mode against its plain version,
+    bit for bit: REVERSE_SHAPES, one step short of and past a stage of the
+    plan at B=4 (their T from :func:`scan_stage_edge`), W = 36 (the
+    4-byte path) and a ragged last strip (W = 64, T = 37).  Returns the
+    largest |kernel - plain|."""
+    shapes = list(REVERSE_SHAPES) + [
+        (4, scan_stage_edge(plan, 4, 2560, e, sms), 2560) for e in (-1, 1)]
+    shapes += [(2, 100, 36), (2, 37, 64)]
+    max_err = 0.0
+    for B, T, W in shapes:
+        a = 0.5 + 0.5 * torch.rand(B, T, W, generator=gen, device="cuda")
+        g = torch.randn(B, T, W, generator=gen, device="cuda")
+        got = kern(a, g)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_reverse_ref(a, g)
+        err = (got - want).abs().max().item()
+        if not (bool(torch.isfinite(got).all()) and err <= SCAN_TOL):
+            fail(f"rglru_scan_reverse ({B}, {T}, {W}): kernel disagrees with "
+                 f"the plain version ({err:.3e})")
+        max_err = max(max_err, err)
+        print(f"[kernel] rglru_scan_reverse ({B}, {T}, {W}): max|kernel-"
+              f"plain| {err:.3e}, plan {kern.plan}")
+    return max_err
+
+
+def time_reverse_kernel(torch, ref, ops, kern, gen, card):
+    """Phase 22d: the reverse mode at REVERSE_SHAPES, a and g rotated past
+    the L2, beside its plain version and its byte bound (12 B T W: a and g
+    read once, c written once); and the scan Function's whole backward
+    (the reverse kernel, then the elementwise dL/da pass) as context.
+    Returns {(B, T, W): (kernel ms, plain ms, bound ms, bound_by, plan,
+    backward ms)}."""
+    out = {}
+    for B, T, W in REVERSE_SHAPES:
+        n = max(2, math.ceil(ROTATE_BYTES / (2 * B * T * W * 4)))
+        As = [0.5 + 0.5 * torch.rand(B, T, W, generator=gen, device="cuda")
+              for _ in range(n)]
+        Gs = [torch.randn(B, T, W, generator=gen, device="cuda")
+              for _ in range(n)]
+        t_k = cuda_ms(torch, lambda i: kern(As[i % n], Gs[i % n]), 100)
+        t_p = cuda_ms(torch, lambda i: ref.rglru_scan_reverse_ref(
+            As[i % n], Gs[i % n]), 3)
+        b_ms, b_by = least(12 * B * T * W, 2 * B * T * W, "float32")
+        plan = kern.plan
+        us = [torch.randn(B, T, W, generator=gen, device="cuda")
+              .requires_grad_() for _ in range(n)]
+        a_req = [a.requires_grad_() for a in As]
+        hs = [ops.rglru_linear_scan(a_req[i], us[i]) for i in range(n)]
+        t_b = cuda_ms(torch, lambda i: torch.autograd.grad(
+            hs[i % n], (a_req[i % n], us[i % n]), Gs[i % n],
+            retain_graph=True), 50)
+        out[(B, T, W)] = (t_k, t_p, b_ms, b_by, plan, t_b)
+        print(f"[timing] rglru_scan_reverse ({B}, {T}, {W}) f32: kernel "
+              f"{t_k * 1e3:.2f} us (roofline share {b_ms / t_k:.0%}), plain "
+              f"{t_p * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}); plan "
+              f"{plan}; the whole scan backward (kernel + dL/da pass) "
+              f"{t_b * 1e3:.2f} us; no single PyTorch call computes this "
+              f"recurrence — {card}")
+        del As, Gs, us, a_req, hs
+    return out
+
+
+def rglru_block_grads(torch, ref_impl, lp, x, dy):
+    """Gradients of one ``rglru_block`` (its parameters and its input)
+    under ``impl``; float32."""
+    from repro_torch.models.recurrent import rglru_block
+    lp = {k: v.detach().float().requires_grad_() for k, v in lp.items()}
+    x = x.detach().clone().requires_grad_()
+    y, _ = rglru_block(lp, x, impl=ref_impl)
+    names = sorted(lp)
+    grads = torch.autograd.grad(y, [lp[k] for k in names] + [x], dy)
+    return dict(zip(names + ["x"], grads))
+
+
+def train_phase(torch, kernels, card, gen):
+    """Phase 22: training at full width on the card.
+
+    a. full-width, full-depth Qwen3-1.7B (28 layers, bf16): 1 warm-up and
+       4 timed train steps of 4 x 512 tokens, one profiled;
+    b. full-width, full-depth RecurrentGemma-2B (26 layers, bf16) at 2 x
+       512 the same way; a train step must launch the scan's forward and
+       reverse modes once per RG-LRU layer (18 + 18);
+    c. the reverse mode against its plain version, bit for bit;
+    d. its time beside its bound and its plain version;
+    e. the gradients of one full-width RG-LRU block (layer 0's weights, in
+       float32, B=2 x 512) with the scan kernels against the plain scans.
+    Returns the phase's numbers."""
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.models.weights import tree_map
+    out = {"qwen": train_model(torch, "qwen3-1.7b", 4, 512, card, kernels)}
+    q = out["qwen"]["launches"]
+    if any(q.values()):
+        fail(f"Qwen3 train step launched port kernels: {q}")
+    rg = train_model(torch, "recurrentgemma-2b", 2, 512, card, kernels)
+    out["rg"] = rg
+    out["qwen"].pop("n_rglru")
+    n_rglru = rg.pop("n_rglru")          # 18 in the full config
+    la = rg["launches"]
+    if (la["rglru_scan"] != n_rglru or la["rglru_scan_reverse"] != n_rglru
+            or la["decode_attention"] or la["paged_decode_attention"]
+            or la["q4_gemm"]):
+        fail(f"RecurrentGemma train step launches {la}: want {n_rglru} "
+             f"rglru_scan and {n_rglru} rglru_scan_reverse, nothing else")
+    print(f"[train] RecurrentGemma-2B train step: rglru_scan {la['rglru_scan']}"
+          f" + rglru_scan_reverse {la['rglru_scan_reverse']} launches = "
+          f"{n_rglru} + {n_rglru} RG-LRU layers")
+    out["reverse_err"] = check_reverse_kernel(
+        torch, ref, rs.rglru_scan_reverse, rs.scan_plan, build.sm_count(0),
+        gen)
+    out["reverse_times"] = time_reverse_kernel(
+        torch, ref, ops, rs.rglru_scan_reverse, gen, card)
+    # e. one full-width block's gradients, kernels vs plain scans
+    from repro_torch.configs import get_config
+    from repro_torch.models.recurrent import init_rglru_block
+    cfg = get_config("recurrentgemma-2b")
+    bgen = torch.Generator(device="cuda")
+    bgen.manual_seed(1)
+    lp = init_rglru_block(bgen, cfg.d_model, cfg.lru_width, cfg.ssm_conv,
+                          torch.float32)
+    lp = tree_map(lambda t: t if bool(t.any()) else 0.1 * torch.randn(
+        t.shape, generator=bgen, device="cuda"), lp)
+    x = torch.randn(2, 512, cfg.d_model, generator=bgen, device="cuda")
+    dy = torch.randn(2, 512, cfg.d_model, generator=bgen, device="cuda")
+    got = rglru_block_grads(torch, "auto", lp, x, dy)
+    want = rglru_block_grads(torch, "ref", lp, x, dy)
+    worst = 0.0
+    for k, g in got.items():
+        w = want[k]
+        rel = ((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        if not (bool(torch.isfinite(g).all()) and rel <= BLOCK_GRAD_RTOL):
+            fail(f"rglru_block gradient of {k}: kernels vs plain "
+                 f"{rel:.3e} of its largest |g| (tol {BLOCK_GRAD_RTOL})")
+    out["block_grad_rel"] = worst
+    print(f"[train] full-width rglru_block gradients (B=2 x 512, f32), "
+          f"scan kernels vs plain scans: worst leaf {worst:.3e} of its "
+          f"largest |g| (tol {BLOCK_GRAD_RTOL}) over {len(got)} leaves")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch under {ROOT}: run chip_smoke.py from the "
@@ -3331,6 +3684,14 @@ def main() -> int:
         xattn[arch] = xattn_phase(torch, np, kernels, card, phase, arch,
                                   lens, n_new)
         err_da = max(err_da, xattn[arch]["cross_err"])
+
+    # -- 22. training at full width --------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(t_start, "phase 22, training at full width")
+    tr = train_phase(torch, kernels, card, gen)
+    rev = tr["reverse_times"]
+    t_rv, t_rv_p, b_rv, b_rv_by, rv_plan, _ = rev[REVERSE_SHAPES[0]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     paged_src = "src/repro_torch/csrc/paged_decode_attention.cu"
     print(json.dumps({"kernels": [{
@@ -3456,7 +3817,30 @@ def main() -> int:
                      for (B_, T_, W_), t in rs_times.items()],
         "prefill_device_ms": prefill_ms,
         "prefill_scan_device_ms": prefill_scan_ms,
-    }], "profile_retraces": kernel_times.retraces}))
+        "launches_train_step": tr["rg"]["launches"]["rglru_scan"],
+    }, {
+        "name": "rglru_scan_reverse",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:46",
+        "mode": "reverse in T (the gradient's recurrence); the JAX package "
+                "differentiates jax.lax.associative_scan",
+        "launches": tr["rg"]["launches"]["rglru_scan_reverse"],
+        "max_abs_err": tr["reverse_err"],
+        "ms": t_rv,
+        "plain_ms": t_rv_p,
+        "bound_ms": b_rv,
+        "bound_by": b_rv_by,
+        "library_ms": None,
+        "plan": rv_plan,
+        "by_shape": [{"B": B_, "T": T_, "W": W_, "ms": t[0],
+                      "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                      "plan": t[4], "scan_backward_ms": t[5]}
+                     for (B_, T_, W_), t in rev.items()],
+        "block_grad_rel_err": tr["block_grad_rel"],
+    }], "training": {k: {n: v for n, v in tr[k].items() if n != "launches"}
+                     for k in ("qwen", "rg")},
+        "profile_retraces": kernel_times.retraces}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -76,6 +76,24 @@
 // build flags are the other kernels'.  A launch can be captured in a CUDA
 // graph: the maps travel as kernel parameters (__grid_constant__).
 //
+// The reverse mode (the gradient).  The JAX package has no backward kernel:
+// it differentiates jax.lax.associative_scan.  The backward of the
+// recurrence is the same recurrence run backwards in T with the gates
+// shifted one step,
+//
+//   c[b, t, w] = a[b, t+1, w] * c[b, t+1, w] + g[b, t, w],   c[b, T, w] = 0
+//
+// (g = dL/dh, c = dL/du; dL/da and dL/dh0 are products of c with h and a,
+// one elementwise pass in the wrapper).  The same kernels run it with
+// REVERSE = true: the tiles are taken last first, each tile's steps last
+// first, and a lane carries a[t+1] from the step it just ran, so no
+// flipped or shifted copy of a or g is ever made and the mode moves the
+// forward's 12 * B * T * W bytes.  A tile past T is zero-filled, so its
+// steps leave the state at 0 until step T - 1 starts the chain with
+// round(0 * 0) + g = g.  Each step is rounded as the forward's are,
+// __fmul_rn then __fadd_rn, in the order of the plain version
+// (src/repro_torch/kernels/ref.py::rglru_scan_reverse_ref): bit for bit.
+//
 // Plain C interface, bound with ctypes by src/repro_torch/kernels/rglru_scan.py.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: not linked)
@@ -189,8 +207,9 @@ __host__ __device__ constexpr size_t warp_smem(int steps, int stages) {
 // One warp per (batch row, strip of 32 channels); `strips` = ceil(W / 32).
 // Lane 0 issues the tensor copies, every lane waits on the stage's barrier
 // and runs its channel.  A last tile past T, and lanes past W, compute on
-// zeros that the store leaves out.
-template <int STEPS>
+// zeros that the store leaves out.  REVERSE runs the gradient's recurrence
+// (see the header): tile k of the loop is tile tiles - 1 - k of T.
+template <int STEPS, bool REVERSE>
 __global__ void __launch_bounds__(kMaxWarps * kLanes)
 rglru_scan_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_u,
@@ -215,6 +234,8 @@ rglru_scan_tma_kernel(const __grid_constant__ CUtensorMap map_a,
   float* hout = ring + 2 * stages * kTile;       // [2][kTile]
   uint64_t* bars = reinterpret_cast<uint64_t*>(hout + 2 * kTile);
   const int tiles = (T + STEPS - 1) / STEPS;
+  // the first step of the loop's k-th tile
+  auto t0_of = [&](int k) { return (REVERSE ? tiles - 1 - k : k) * STEPS; };
 
   if (lane == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
@@ -225,14 +246,15 @@ rglru_scan_tma_kernel(const __grid_constant__ CUtensorMap map_a,
   auto issue = [&](int k, int at) {
     if (k < tiles) {
       mbar_expect_tx(&bars[at], 2 * kTileBytes);
-      tma_load(ring + at * 2 * kTile, &map_a, &bars[at], w0, k * STEPS, b);
-      tma_load(ring + (at * 2 + 1) * kTile, &map_u, &bars[at], w0,
-               k * STEPS, b);
+      tma_load(ring + at * 2 * kTile, &map_a, &bars[at], w0, t0_of(k), b);
+      tma_load(ring + (at * 2 + 1) * kTile, &map_u, &bars[at], w0, t0_of(k),
+               b);
     }
   };
 
   float state = (h0 != nullptr && w < W) ? h0[static_cast<size_t>(b) * W + w]
                                          : 0.f;
+  float a_next = 0.f;  // REVERSE: a of the step after the one being run
   if (lane == 0)
     for (int k = 0; k < stages - 1; ++k) issue(k, k);
   // slots of tile k and of tile k + stages - 1, and the parity of tile k's
@@ -259,15 +281,24 @@ rglru_scan_tma_kernel(const __grid_constant__ CUtensorMap map_a,
       ra[i] = ta[i * kLanes];
       ru[i] = tu[i * kLanes];
     }
+    if (REVERSE) {
 #pragma unroll
-    for (int i = 0; i < STEPS; ++i) {
-      state = __fadd_rn(__fmul_rn(ra[i], state), ru[i]);
-      to[i * kLanes + lane] = state;
+      for (int i = STEPS - 1; i >= 0; --i) {
+        state = __fadd_rn(__fmul_rn(a_next, state), ru[i]);
+        to[i * kLanes + lane] = state;
+        a_next = ra[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i) {
+        state = __fadd_rn(__fmul_rn(ra[i], state), ru[i]);
+        to[i * kLanes + lane] = state;
+      }
     }
     proxy_fence();  // this lane's h writes, visible to the tensor store
     __syncwarp();
     if (lane == 0) {
-      tma_store(&map_h, to, w0, k * STEPS, b);
+      tma_store(&map_h, to, w0, t0_of(k), b);
       bulk_commit();
     }
     if (++use == stages) {
@@ -327,8 +358,8 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
 
 // One warp per (batch row, strip of 32 channels), as the TMA kernel, with
 // the ring in the same place; each lane copies its own channel's steps
-// and stores its own results.
-template <int STEPS>
+// and stores its own results.  REVERSE as in the TMA kernel.
+template <int STEPS, bool REVERSE>
 __global__ void __launch_bounds__(kMaxWarps * kLanes)
 rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ u,
                   const float* __restrict__ h0, float* __restrict__ h, int B,
@@ -348,6 +379,7 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ u,
       static_cast<size_t>(warp) * warp_smem(STEPS, stages));
   const size_t row0 = static_cast<size_t>(b) * T * W;  // (b, 0, 0)
   const int tiles = (T + STEPS - 1) / STEPS;
+  auto t0_of = [&](int k) { return (REVERSE ? tiles - 1 - k : k) * STEPS; };
 
   // tile k into ring slot `at` (k % stages); one commit group per call,
   // empty past the last tile, so that every thread always has stages - 1
@@ -355,7 +387,7 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ u,
   auto issue = [&](int k, int at) {
     if (k < tiles) {
       float* slot = ring + at * 2 * kTile;
-      const int t0 = k * STEPS;
+      const int t0 = t0_of(k);
 #pragma unroll
       for (int i = 0; i < STEPS; ++i) {
         const bool ok = live && t0 + i < T;
@@ -370,8 +402,8 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ u,
 
   float state = (h0 != nullptr && live) ? h0[static_cast<size_t>(b) * W + w]
                                         : 0.f;
+  float a_next = 0.f;  // REVERSE: a of the step after the one being run
   for (int k = 0; k < stages - 1; ++k) issue(k, k);
-  float* out = h + row0 + w;
   const size_t step = static_cast<size_t>(W);
   int use = 0, fill = stages - 1;
   for (int k = 0; k < tiles; ++k) {
@@ -380,12 +412,21 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ u,
     issue(k + stages - 1, fill);
     const float* ta = ring + use * 2 * kTile + lane;
     const float* tu = ta + kTile;
-    const int n = min(STEPS, T - k * STEPS);
-    for (int i = 0; i < n; ++i) {
-      state = __fadd_rn(__fmul_rn(ta[i * kLanes], state), tu[i * kLanes]);
-      if (live) out[i * step] = state;
+    const int t0 = t0_of(k);
+    const int n = min(STEPS, T - t0);
+    float* out = h + row0 + static_cast<size_t>(t0) * step + w;
+    if (REVERSE) {
+      for (int i = n - 1; i >= 0; --i) {
+        state = __fadd_rn(__fmul_rn(a_next, state), tu[i * kLanes]);
+        if (live) out[i * step] = state;
+        a_next = ta[i * kLanes];
+      }
+    } else {
+      for (int i = 0; i < n; ++i) {
+        state = __fadd_rn(__fmul_rn(ta[i * kLanes], state), tu[i * kLanes]);
+        if (live) out[i * step] = state;
+      }
     }
-    out += STEPS * step;
     if (++use == stages) use = 0;
     if (++fill == stages) fill = 0;
   }
@@ -438,7 +479,7 @@ cudaError_t make_map(EncodeTiled encode, CUtensorMap* map, const float* p,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int STEPS>
+template <int STEPS, bool REVERSE>
 cudaError_t launch(const float* a, const float* u, const float* h0, float* h,
                    int B, int T, int W, int warps_per_block, int stages,
                    bool tma, cudaStream_t s) {
@@ -456,7 +497,7 @@ cudaError_t launch(const float* a, const float* u, const float* h0, float* h,
     if (err == cudaSuccess) err = make_map(encode, &ma, a, B, T, W, STEPS);
     if (err == cudaSuccess) err = make_map(encode, &mu, u, B, T, W, STEPS);
     if (err == cudaSuccess) err = make_map(encode, &mh, h, B, T, W, STEPS);
-    auto* kernel = rglru_scan_tma_kernel<STEPS>;
+    auto* kernel = rglru_scan_tma_kernel<STEPS, REVERSE>;
     // above 48 KB a kernel must opt in (a host call, not a stream
     // operation)
     if (err == cudaSuccess && smem > 48 * 1024)
@@ -467,7 +508,7 @@ cudaError_t launch(const float* a, const float* u, const float* h0, float* h,
     kernel<<<blocks, threads, smem, s>>>(ma, mu, mh, h0, B, T, W, strips,
                                          stages);
   } else {
-    auto* kernel = rglru_scan_kernel<STEPS>;
+    auto* kernel = rglru_scan_kernel<STEPS, REVERSE>;
     if (smem > 48 * 1024)
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -479,6 +520,16 @@ cudaError_t launch(const float* a, const float* u, const float* h0, float* h,
   return cudaGetLastError();
 }
 
+template <int STEPS>
+cudaError_t launch_mode(const float* a, const float* u, const float* h0,
+                        float* h, int B, int T, int W, int warps_per_block,
+                        int stages, bool reverse, bool tma, cudaStream_t s) {
+  return reverse ? launch<STEPS, true>(a, u, h0, h, B, T, W, warps_per_block,
+                                       stages, tma, s)
+                 : launch<STEPS, false>(a, u, h0, h, B, T, W,
+                                        warps_per_block, stages, tma, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -488,11 +539,13 @@ extern "C" {
 // buffer.  h0 may be null (zero initial state).  warps_per_block (1-4),
 // steps (8, 16, 32 or 64 steps a ring stage) and stages (2-16) are the
 // wrapper's plan; anything else is refused with cudaErrorInvalidValue.
+// reverse != 0 runs the gradient's recurrence over (a, u = g) into h = c
+// (see the header), with h0 null.
 int rglru_scan(const void* a, const void* u, const void* h0, void* h, int B,
                int T, int W, int warps_per_block, int steps, int stages,
-               int device, void* stream) {
+               int reverse, int device, void* stream) {
   if (warps_per_block < 1 || warps_per_block > kMaxWarps || stages < 2 ||
-      stages > kMaxStages)
+      stages > kMaxStages || (reverse && h0 != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -506,22 +559,23 @@ int rglru_scan(const void* a, const void* u, const void* h0, void* h, int B,
   const auto* fh0 = static_cast<const float*>(h0);
   auto* fh = static_cast<float*>(h);
   auto s = static_cast<cudaStream_t>(stream);
+  const bool rev = reverse != 0;
   switch (steps) {
     case 8:
-      err = launch<8>(fa, fu, fh0, fh, B, T, W, warps_per_block, stages, tma,
-                      s);
+      err = launch_mode<8>(fa, fu, fh0, fh, B, T, W, warps_per_block, stages,
+                           rev, tma, s);
       break;
     case 16:
-      err = launch<16>(fa, fu, fh0, fh, B, T, W, warps_per_block, stages,
-                       tma, s);
+      err = launch_mode<16>(fa, fu, fh0, fh, B, T, W, warps_per_block,
+                            stages, rev, tma, s);
       break;
     case 32:
-      err = launch<32>(fa, fu, fh0, fh, B, T, W, warps_per_block, stages,
-                       tma, s);
+      err = launch_mode<32>(fa, fu, fh0, fh, B, T, W, warps_per_block,
+                            stages, rev, tma, s);
       break;
     case 64:
-      err = launch<64>(fa, fu, fh0, fh, B, T, W, warps_per_block, stages,
-                       tma, s);
+      err = launch_mode<64>(fa, fu, fh0, fh, B, T, W, warps_per_block,
+                            stages, rev, tma, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -15,6 +15,7 @@ from .decode_attention import decode_attention as _decode_kernel
 from .decode_attention import paged_decode_attention as _paged_kernel
 from .q4_gemm import q4_gemm as _q4_kernel
 from .rglru_scan import rglru_scan as _rglru_kernel
+from .rglru_scan import rglru_scan_reverse as _rglru_reverse_kernel
 
 
 def _check_impl(impl: str) -> None:
@@ -118,15 +119,58 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+class _LinearScan(torch.autograd.Function):
+    """The RG-LRU recurrence with its gradient.
+
+    Forward: ``h[t] = a[t] * h[t-1] + u[t]`` (the kernel on CUDA
+    tensors, ``kernels.ref`` on CPU tensors or under ``impl="ref"``).
+    Backward, with ``g = dL/dh``: ``c = dL/du`` is the reverse scan
+    ``c[t] = a[t+1] * c[t+1] + g[t]`` (the kernel's reverse mode, or its
+    plain version), then one elementwise pass gives
+    ``dL/da[t] = c[t] * h[t-1]`` (``h[-1] = h0``, or 0) and
+    ``dL/dh0 = a[0] * c[0]``.  The JAX package differentiates
+    ``jax.lax.associative_scan`` instead; the two agree within float32
+    rounding."""
+
+    @staticmethod
+    def forward(ctx, a, u, h0, impl):
+        if impl == "ref" or not a.is_cuda:
+            h = _ref.rglru_scan_ref(a, u, h0)
+        else:
+            h = _rglru_kernel(a, u, h0)
+        ctx.impl = impl
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.impl == "ref" or not g.is_cuda:
+            c = _ref.rglru_scan_reverse_ref(a, g)
+        else:
+            c = _rglru_reverse_kernel(a, g)
+        da = torch.empty_like(c)
+        torch.mul(c[:, 1:], h[:, :-1], out=da[:, 1:])
+        dh0 = None
+        if h0 is None:
+            da[:, 0] = 0.0
+        else:
+            torch.mul(c[:, 0], h0, out=da[:, 0])
+            dh0 = a[:, 0] * c[:, 0]
+        return da, c, dh0, None
+
+
 def rglru_linear_scan(a: torch.Tensor, u: torch.Tensor, h0=None, *,
                       impl: str = "auto") -> torch.Tensor:
     """RG-LRU recurrence ``h[t] = a[t] * h[t-1] + u[t]`` over (B, T, W),
-    ``h0`` (B, W) folded into step 0; float32 in and out.
+    ``h0`` (B, W) folded into step 0; float32 in and out, differentiable
+    in ``a``, ``u`` and ``h0`` (:class:`_LinearScan`).
 
     Kernel launches are counted on
-    ``repro_torch.kernels.rglru_scan.rglru_scan.launches``.
+    ``repro_torch.kernels.rglru_scan.rglru_scan.launches`` (forward) and
+    ``repro_torch.kernels.rglru_scan.rglru_scan_reverse.launches``
+    (backward).
     """
     _check_impl(impl)
-    if impl == "ref" or not a.is_cuda:
-        return _ref.rglru_scan_ref(a, u, h0)
-    return _rglru_kernel(a, u, h0)
+    return _LinearScan.apply(a, u, h0, impl)

@@ -122,3 +122,17 @@ def rglru_scan_ref(a: torch.Tensor, u: torch.Tensor,
         torch.add(a[:, t] * prev, u[:, t], out=h[:, t])
         prev = h[:, t]
     return h
+
+
+def rglru_scan_reverse_ref(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient's recurrence ``c[:, t] = a[:, t+1] * c[:, t+1] +
+    g[:, t]`` backwards over axis 1 of (B,T,W), ``c[:, T-1] = g[:, T-1]``:
+    the plain version of ``repro_torch.kernels.rglru_scan.
+    rglru_scan_reverse``.
+
+    :func:`rglru_scan_ref` over the reversed inputs with the gates
+    shifted one step (``a[:, T]`` taken as 0), reversed back: the same
+    sequential loop run backwards, each step the kernel's product and
+    then its sum, so the two agree bit for bit."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    return rglru_scan_ref(a_next.flip(1), g.flip(1)).flip(1)

@@ -1,18 +1,20 @@
-"""RG-LRU linear-recurrence scan: the CUDA kernel's Python wrapper.
+"""RG-LRU linear-recurrence scan: the CUDA kernel's Python wrappers.
 
 Counterpart of the Pallas TPU kernel
 ``repro.kernels.rglru_scan.rglru_scan_kernel``.  The kernel itself is
 ``csrc/rglru_scan.cu`` (its header says what it computes, what bounds it
 on an H100 and what its design does about that);
 :mod:`repro_torch.kernels.build` compiles it with ``nvcc`` on first use
-and loads it with ``ctypes``.  The plain version it is held against is
-:func:`repro_torch.kernels.ref.rglru_scan_ref`.
+and loads it with ``ctypes``.  The plain versions it is held against are
+:func:`repro_torch.kernels.ref.rglru_scan_ref` and, for its reverse mode,
+:func:`repro_torch.kernels.ref.rglru_scan_reverse_ref`.
 
-:func:`rglru_scan` takes CUDA tensors only and launches the kernel or
-raises: there is no fallback.  Its ``launches`` attribute is a plain
-integer, one per launch, so a run can show that its main path went
-through the kernel; its ``plan`` attribute is the last launch's
-:func:`scan_plan`.
+:func:`rglru_scan` (the recurrence) and :func:`rglru_scan_reverse` (its
+gradient's recurrence, the same kernel run backwards in T) take CUDA
+tensors only and launch the kernel or raise: there is no fallback.
+Each has a ``launches`` attribute, a plain integer, one per launch of
+its mode, so a run can show that its main path went through the kernel;
+its ``plan`` attribute is the last launch's :func:`scan_plan`.
 """
 
 from __future__ import annotations
@@ -103,6 +105,7 @@ def _bind() -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp,          # a, u, h0, h
                        ci, ci, ci,              # B, T, W
                        ci, ci, ci,              # the plan
+                       ci,                      # reverse
                        ci, vp]                  # device, stream
         fn.restype = ci
         lib.rglru_scan_error.argtypes = [ci]
@@ -110,17 +113,13 @@ def _bind() -> ctypes.CDLL:
     return lib
 
 
-def rglru_scan(a: torch.Tensor, u: torch.Tensor,
-               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """h[:, t] = a[:, t] * h[:, t-1] + u[:, t] over axis 1, h[:, -1] = h0.
-
-    a, u (B, T, W) float32 -> h (B, T, W) float32; ``h0`` (B, W) float32
-    or None (zero state), folded into step 0 as the reference does.
-
-    One launch, planned by :func:`scan_plan` (kept in ``rglru_scan.plan``).
-    """
+def _launch(a: torch.Tensor, u: torch.Tensor, h0: Optional[torch.Tensor],
+            reverse: bool, what: str):
+    """Check the inputs, allocate the output and launch one mode of the
+    kernel; returns (the output, the launch's plan, None if nothing was
+    launched)."""
     if not a.is_cuda:
-        raise ValueError("rglru_scan launches a CUDA kernel; use kernels.ref "
+        raise ValueError(f"{what} launches a CUDA kernel; use kernels.ref "
                          "for CPU tensors")
     if a.dim() != 3 or u.shape != a.shape:
         raise ValueError(f"a {tuple(a.shape)} / u {tuple(u.shape)}: both "
@@ -138,7 +137,7 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
                          f"{tuple(a.shape)}")
     out = torch.empty((B, T, W), dtype=torch.float32, device=dev)
     if out.numel() == 0:
-        return out
+        return out, None
     ac, uc = a.contiguous(), u.contiguous()
     hc = h0.contiguous() if h0 is not None else None
     lib = _bind()
@@ -146,16 +145,52 @@ def rglru_scan(a: torch.Tensor, u: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rglru_scan(ac.data_ptr(), uc.data_ptr(),
                          hc.data_ptr() if hc is not None else None,
-                         out.data_ptr(), B, T, W, *plan, dev.index or 0,
-                         stream)
+                         out.data_ptr(), B, T, W, *plan, int(reverse),
+                         dev.index or 0, stream)
     if err != 0:
         msg = lib.rglru_scan_error(err).decode()
-        raise RuntimeError(f"rglru_scan launch failed at (B, T, W) = "
+        raise RuntimeError(f"{what} launch failed at (B, T, W) = "
                            f"({B}, {T}, {W}): CUDA error {err} ({msg})")
-    rglru_scan.launches += 1
-    rglru_scan.plan = plan
+    return out, plan
+
+
+def rglru_scan(a: torch.Tensor, u: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h[:, t] = a[:, t] * h[:, t-1] + u[:, t] over axis 1, h[:, -1] = h0.
+
+    a, u (B, T, W) float32 -> h (B, T, W) float32; ``h0`` (B, W) float32
+    or None (zero state), folded into step 0 as the reference does.
+
+    One launch, planned by :func:`scan_plan` (kept in ``rglru_scan.plan``).
+    """
+    out, plan = _launch(a, u, h0, False, "rglru_scan")
+    if plan is not None:
+        rglru_scan.launches += 1
+        rglru_scan.plan = plan
     return out
 
 
 rglru_scan.launches = 0
 rglru_scan.plan = None
+
+
+def rglru_scan_reverse(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient's recurrence: c[:, t] = a[:, t+1] * c[:, t+1] + g[:, t]
+    over axis 1 backwards, c[:, T-1] = g[:, T-1].
+
+    a, g (B, T, W) float32 (the forward's gates and dL/dh) -> c (B, T, W)
+    float32, which is dL/du.  The kernel's reverse mode reads a and g in
+    place, last step first: no flipped or shifted copies.
+
+    One launch, planned by :func:`scan_plan` as the forward is (kept in
+    ``rglru_scan_reverse.plan``).
+    """
+    out, plan = _launch(a, g, None, True, "rglru_scan_reverse")
+    if plan is not None:
+        rglru_scan_reverse.launches += 1
+        rglru_scan_reverse.plan = plan
+    return out
+
+
+rglru_scan_reverse.launches = 0
+rglru_scan_reverse.plan = None

@@ -54,11 +54,16 @@ get this command's ``--device``, ``--params`` and engine flags.
 ``--port 0`` picks a free port; ``--port-file PATH`` writes the bound
 port for scripts.  SIGTERM or SIGINT stops the server (and the fleet).
 
+Before serving, the model is warm-trained for ``--warmup-steps`` steps
+(default 40, as in the reference; 0 serves the drawn weights) with the
+reference's recipe (:func:`warm_up`), so the outputs are not noise.
+``--http --replicas N`` serves its workers' own weights untrained, as the
+reference's fleet does.
+
 It runs on the GPU (``--device cuda``, the default) and raises when no
 GPU is present; ``--device cpu`` runs it on the CPU.  ``--arch tiny`` is
-the benchmark suite's bench-tiny model.  Warm-up training is not ported
-yet, so ``--warmup-steps`` must stay 0; tensor-parallel serving
-(``--tp-shards``) is not ported either.
+the benchmark suite's bench-tiny model.  Tensor-parallel serving
+(``--tp-shards``) is not ported.
 
 Examples:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
@@ -79,6 +84,27 @@ Examples:
 
 import argparse
 import sys
+
+
+def warm_up(model, params, steps: int, *, log_every: int = 20):
+    """The reference CLI's warm-up: ``steps`` AdamW steps (lr 2e-3, 5
+    warm-up steps, cosine over ``steps``) on batches of 8 rows of the
+    packed synthetic corpus (64 tokens, 1000 documents), with the seed-
+    ``step`` image or audio stubs of a cross-attention model.  Trains
+    ``params`` in place on their device and returns them (not requiring
+    grad) with the loss history."""
+    from ..data.pipeline import PackedLMDataset
+    from ..training.loop import train
+    from ..training.optimizer import AdamWConfig
+    from .train import stub_extras
+    ds = PackedLMDataset(seq_len=64, n_docs=1000,
+                         vocab_size=model.cfg.vocab_size)
+    batches = ds.batches(8, extra_fn=stub_extras(model.cfg))
+    params, _, hist = train(model, params, batches,
+                            AdamWConfig(lr=2e-3, warmup_steps=5,
+                                        total_steps=steps),
+                            steps=steps, log_every=log_every)
+    return params, hist
 
 
 def stream_interactive(eng, handle, write, *, decode=None,
@@ -236,9 +262,9 @@ def main(argv=None) -> int:
                     help="paged engines: self-speculative decoding — "
                          "draft up to K tokens per step by prompt lookup "
                          "and verify them in one batched forward")
-    ap.add_argument("--warmup-steps", type=int, default=0,
-                    help="LM warm-up training steps (not ported yet: "
-                         "only 0 is accepted)")
+    ap.add_argument("--warmup-steps", type=int, default=40,
+                    help="brief LM warm-up so outputs aren't noise "
+                         "(0 = random weights)")
     ap.add_argument("--metrics-json", metavar="PATH", default=None,
                     help="paged engines: write the metrics registry "
                          "snapshot (JSON) on exit")
@@ -291,8 +317,8 @@ def main(argv=None) -> int:
                  "use --engine continuous or async")
     if args.spec_decode < 0:
         ap.error("--spec-decode must be >= 0")
-    if args.warmup_steps:
-        ap.error("--warmup-steps: training is not ported yet; use 0")
+    if args.warmup_steps < 0:
+        ap.error("--warmup-steps must be >= 0")
     if args.replicas and not args.http:
         ap.error("--replicas needs --http")
     if args.max_respawns < 0:
@@ -339,6 +365,9 @@ def main(argv=None) -> int:
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
           + (f", weights from {args.params}" if args.params else ""))
+    if args.warmup_steps:
+        print(f"warm-up training ({args.warmup_steps} steps) ...")
+        params, _ = warm_up(model, params, args.warmup_steps)
 
     prompts = args.prompt or ["the scheduler binds", "a numa node",
                               "the kv cache streams", "one thread gathers"]

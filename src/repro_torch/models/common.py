@@ -1,4 +1,5 @@
-"""Shared layers: norms, MLP, logits, initializers (``repro.models.common``).
+"""Shared layers: norms, MLP, logits, loss, initializers
+(``repro.models.common``).
 
 Weight layout convention (as in the reference): every projection is
 stored ``(d_in, d_out)`` and applied as ``x @ w``.
@@ -106,3 +107,25 @@ def unembed(embed_or_head: torch.Tensor, x: torch.Tensor, *,
     if tied:
         return x @ embed_or_head.T
     return x @ embed_or_head
+
+
+def nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+            ignore_id: int = -100):
+    """(summed token NLL in float32, count of labels that are not
+    ``ignore_id``); labels are clipped into the vocabulary for the
+    gather, as in the reference."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    idx = labels.long().clamp(0, lf.shape[-1] - 1)[..., None]
+    gold = torch.gather(lf, -1, idx)[..., 0]
+    mask = (labels != ignore_id).float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -100) -> torch.Tensor:
+    """Mean token-level cross entropy in float32 over the labels that are
+    not ``ignore_id``, the mean over ``max(count, 1)``, as in the
+    reference."""
+    total, count = nll_sum(logits, labels, ignore_id)
+    return total / torch.clamp(count, min=1.0)

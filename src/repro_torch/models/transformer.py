@@ -1,8 +1,10 @@
-"""Transformer: the serving subset of ``repro.models.transformer``.
+"""Transformer: the counterpart of ``repro.models.transformer``.
 
 ``build_model(cfg)`` returns a :class:`Model` exposing
 
     init(gen)                                  -> params
+    forward(params, batch)                     -> (logits, aux)
+    loss(params, batch)                        -> (scalar, metrics)
     init_cache(B, max_len, cache_len=None, memory_len=0)
                                                -> ring cache (zeros)
     init_cache(B, max_len, page_size=..., kv_dtype="fp32"|"int8")
@@ -79,6 +81,19 @@ MoE layers (``repro_torch.models.moe``) take the reference's
 loss is summed over the stack as in the reference under
 ``_run_layers(with_aux=True)``; the serving entry points discard it, so
 they leave it off and launch nothing for it.
+
+Training (``forward`` / ``loss``) runs the stack without a cache
+(``caches=None``): every layer attends over its own K/V, the RG-LRU and
+SSD layers start from a zero state and keep none, and the router aux
+loss is on.  Autograd differentiates it, the RG-LRU scan through its
+``torch.autograd.Function`` (the scan kernel's reverse mode on the
+card).  A stacked leaf's per-layer views come from one ``torch.unbind``
+a forward (``_layer_params``), whose backward is one ``stack``: indexing
+``w[i]`` per layer would make each view's backward allocate a zero
+tensor of the whole stack.  As in the reference, the blockwise attention
+is rematerialised in the backward pass and ``cfg.remat`` checkpoints
+each layer (each super-block in the block layout), with
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -87,12 +102,14 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import gqa_decode_attention, paged_gqa_decode_attention
 from ..quant.kv_int8 import dequantize_rows, quantize_rows
 from .attention import flash_attention
-from .common import (Params, dense_init, embed_init, layer_norm, mlp, proj,
-                     rms_norm, unembed)
+from .common import (Params, dense_init, embed_init, layer_norm, mlp,
+                     nll_sum, proj, rms_norm, unembed)
 from .config import ModelConfig
 from .moe import init_moe, moe
 from .recurrent import RGLRUState, init_rglru_block, rglru_block
@@ -106,6 +123,17 @@ def _index_tree(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: _index_tree(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, each leaf split with
+    one ``torch.unbind`` (views; under autograd one ``stack`` backward a
+    leaf, where ``n`` indexings would each scatter into a zero tensor the
+    size of the whole stack)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 # ----------------------------------------------------------------------
@@ -406,16 +434,24 @@ def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
                paged: Optional[Dict[str, Any]],
                ring: Optional[Dict[str, Any]], qmm=None,
                causal: bool = True) -> torch.Tensor:
-    """Self-attention of one layer.  Without a cache (Whisper's encoder,
-    ``causal=False``) it attends over its own K/V and writes nothing."""
+    """Self-attention of one layer.  Without a cache (training, and
+    Whisper's encoder with ``causal=False``) it attends over its own K/V
+    and writes nothing."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, ap, x, x, qmm)
     q = _rope(q, positions, theta)
     k = _rope(k, positions, theta)
     if cache is None:
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              chunk=ATTN_CHUNK,
-                              softcap=cfg.attn_logit_softcap)
+        kw = dict(causal=causal, window=window, chunk=ATTN_CHUNK,
+                  softcap=cfg.attn_logit_softcap)
+        if torch.is_grad_enabled() and q.requires_grad:
+            # training: recompute the blockwise attention in the backward
+            # pass, as the reference does, instead of keeping every KV
+            # chunk's scores and softmax state
+            out = checkpoint(flash_attention, q, k, v, use_reentrant=False,
+                             **kw)
+        else:
+            out = flash_attention(q, k, v, **kw)
     elif paged is not None:
         out = _paged_attn(cfg, q, k, v, window, cache, paged)
     else:
@@ -477,8 +513,9 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
     dense MLP), the RG-LRU block or the SSD block, whose new state is
     copied into the cache; an SSD layer has no FFN.  An "attn" layer
     with its own ``xattn`` (Whisper's decoder) attends to the memory
-    after itself.  ``cache=None`` is the encoder's cache-less layer.  As
-    in the reference, only self-attention and its FFN take the
+    after itself.  ``cache=None`` is the cache-less layer of training and
+    of the encoder: the recurrent layers start from a zero state and keep
+    none.  As in the reference, only self-attention and its FFN take the
     quantized-matmul hook."""
     h = _apply_norm(cfg, lp["ln1"], x)
     impl = ring["impl"] if ring is not None else "auto"
@@ -487,13 +524,14 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
         h2 = _apply_norm(cfg, lp["ln2"], x)
         return x + mlp(lp["mlp"], h2, cfg.act), 0.0
     if kind == "ssd":
-        st = cache["ssd"]
+        st = None if cache is None else cache["ssd"]
         y, new = ssd_block(lp["ssd"], h, n_heads=cfg.ssm_heads,
                            head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
                            n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk,
-                           state=SSDState(**st))
-        st["state"].copy_(new.state)
-        st["conv"].copy_(new.conv)
+                           state=None if st is None else SSDState(**st))
+        if st is not None:
+            st["state"].copy_(new.state)
+            st["conv"].copy_(new.conv)
         return x + y, 0.0
     if kind == "attn":
         x = x + _self_attn(cfg, lp["attn"], h, positions, theta, window,
@@ -503,12 +541,15 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
             hx = _apply_norm(cfg, lp["ln_x"], x)
             x = x + _cross_attn(cfg, lp["xattn"], hx, memory, impl)
     else:
-        st = cache["rglru"]
-        y, new = rglru_block(lp["rglru"], h, state=RGLRUState(**st),
-                             single_step=ring["single_step"],
-                             impl=ring["impl"])
-        st["h"].copy_(new.h)
-        st["conv"].copy_(new.conv)
+        st = None if cache is None else cache["rglru"]
+        y, new = rglru_block(lp["rglru"], h,
+                             state=None if st is None else RGLRUState(**st),
+                             single_step=(ring is not None
+                                          and ring["single_step"]),
+                             impl=impl)
+        if st is not None:
+            st["h"].copy_(new.h)
+            st["conv"].copy_(new.conv)
         x = x + y
         qmm = None
     h2 = _apply_norm(cfg, lp["ln2"], x)
@@ -734,27 +775,53 @@ class Model:
         return cache
 
     # ------------------------------------------------------------------
+    def _layer_params(self, layers: Any) -> list:
+        """Every layer's parameter tree in layer order, for the three
+        layouts; a stacked leaf is split with one ``torch.unbind``
+        (:func:`_unstack`)."""
+        if self.uniform:
+            return _unstack(layers, self.cfg.n_layers)
+        if self.block_period:
+            p_, nb = self.block_period, self.n_full_blocks
+            blocks = [_unstack(layers["blocks"][j], nb) for j in range(p_)]
+            return ([blocks[j][b] for b in range(nb) for j in range(p_)]
+                    + list(layers["tail"]))
+        return list(layers)
+
+    def _cache_view(self, caches: Any, i: int) -> Any:
+        """Layer ``i``'s cache (None without one); a uniform stack's cache
+        may also be the paged cache's per-layer list.  Stacked entries
+        are views, so in-place cache writes land in the stacked
+        buffers."""
+        if caches is None:
+            return None
+        if self.uniform:
+            return (caches[i] if isinstance(caches, list)
+                    else _index_tree(caches, i))
+        if self.block_period:
+            p_, nb = self.block_period, self.n_full_blocks
+            if i < nb * p_:
+                return _index_tree(caches["blocks"][i % p_], i // p_)
+            return caches["tail"][i - nb * p_]
+        return caches[i]
+
     def _layer_views(self, layers: Any, caches: Any):
         """``(i, layer params, layer cache)`` in layer order, for the
-        three layouts; a uniform stack's cache may also be the paged
-        cache's per-layer list.  Stacked entries are views, so in-place
-        cache writes land in the stacked buffers."""
-        if self.uniform:
-            for i in range(self.cfg.n_layers):
-                cache = (caches[i] if isinstance(caches, list)
-                         else _index_tree(caches, i))
-                yield i, _index_tree(layers, i), cache
-        elif self.block_period:
-            p_, nb = self.block_period, self.n_full_blocks
-            for b in range(nb):
-                for j in range(p_):
-                    yield (b * p_ + j, _index_tree(layers["blocks"][j], b),
-                           _index_tree(caches["blocks"][j], b))
-            for t in range(self.n_tail):
-                yield nb * p_ + t, layers["tail"][t], caches["tail"][t]
-        else:
-            for i in range(self.cfg.n_layers):
-                yield i, layers[i], caches[i]
+        three layouts (the cache None where ``caches`` is None)."""
+        for i, lp in enumerate(self._layer_params(layers)):
+            yield i, lp, self._cache_view(caches, i)
+
+    def _remat_groups(self) -> list:
+        """The layers ``cfg.remat`` checkpoints together, as the
+        reference's scans do: each layer of a uniform stack or a list,
+        each super-block of the block layout; the block layout's tail
+        layers are not checkpointed (the reference runs them outside its
+        checkpointed scan)."""
+        n = self.cfg.n_layers
+        if not self.block_period:
+            return [[i] for i in range(n)]
+        p_, nb = self.block_period, self.n_full_blocks
+        return [list(range(b * p_, (b + 1) * p_)) for b in range(nb)]
 
     def _run_layers(self, params: Params, x: torch.Tensor,
                     positions: torch.Tensor, caches: Any, *,
@@ -768,20 +835,40 @@ class Model:
         the cross-attention layers attend to ``memory``.  Returns (x, the
         stack's summed router aux loss: 0.0 without MoE layers or without
         ``with_aux``; the serving steps discard it, so they leave it
-        off)."""
+        off).  ``caches=None`` is the training path: no cache, and under
+        autograd with ``cfg.remat`` each of :meth:`_remat_groups` is
+        checkpointed (``torch.utils.checkpoint``; the reference's
+        ``save_only_these_names("block_out")`` policy has no torch form,
+        and plain checkpointing computes the same values)."""
         cfg = self.cfg
         windows = list(cfg.layer_windows(0))
         thetas = list(cfg.layer_thetas())
         if window_override is not None:
             windows = [window_override] * cfg.n_layers
+        views = list(self._layer_views(params["layers"], caches))
+
+        def run(idx, x):
+            aux = 0.0
+            for i in idx:
+                _, lp, cache = views[i]
+                x, a = _layer_forward(cfg, self.kinds[i], lp, x, positions,
+                                      thetas[i], windows[i], cache,
+                                      memory=memory, paged=paged, ring=ring,
+                                      qmm=self.qmm, with_aux=with_aux)
+                aux = aux + a
+            return x, aux
+
         aux = 0.0
-        for i, lp, cache in self._layer_views(params["layers"], caches):
-            x, a = _layer_forward(cfg, self.kinds[i], lp, x, positions,
-                                  thetas[i], windows[i], cache,
-                                  memory=memory, paged=paged, ring=ring,
-                                  qmm=self.qmm, with_aux=with_aux)
-            aux = aux + a
-        return x, aux
+        if caches is None and cfg.remat and torch.is_grad_enabled():
+            groups = self._remat_groups()
+            done = 0
+            for idx in groups:
+                x, a = checkpoint(run, idx, x, use_reentrant=False)
+                aux = aux + a
+                done = idx[-1] + 1
+            x, a = run(range(done, cfg.n_layers), x)
+            return x, aux + a
+        return run(range(cfg.n_layers), x)
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder over the frame embeddings (B, F, d): its
@@ -793,10 +880,9 @@ class Model:
         enc = params["encoder"]
         positions = torch.arange(frames.shape[1], device=frames.device)
         x = frames
-        for i in range(cfg.n_encoder_layers):
-            x, _ = _layer_forward(cfg, "attn", _index_tree(enc["layers"], i),
-                                  x, positions, cfg.rope_theta, 0, None,
-                                  causal=False)
+        for lp in _unstack(enc["layers"], cfg.n_encoder_layers):
+            x, _ = _layer_forward(cfg, "attn", lp, x, positions,
+                                  cfg.rope_theta, 0, None, causal=False)
         return _apply_norm(cfg, enc["final_norm"], x)
 
     def _memory_from_batch(self, params: Params, batch: Dict[str, Any],
@@ -814,13 +900,70 @@ class Model:
         ids = tokens.long().clamp(0, self.cfg.vocab_size - 1)
         return params["embed"][ids]
 
+    def _head(self, params: Params) -> torch.Tensor:
+        return (params["embed"] if self.cfg.tie_embeddings
+                else params["lm_head"])
+
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = _apply_norm(self.cfg, params["final_norm"], x)
-        head = (params["embed"] if self.cfg.tie_embeddings
-                else params["lm_head"])
-        return unembed(head, x, tied=self.cfg.tie_embeddings)
+        return unembed(self._head(params), x, tied=self.cfg.tie_embeddings)
 
     # ------------------------------------------------------------------
+    def _hidden_states(self, params: Params, batch: Dict[str, Any],
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final-normed hidden states (B, S, d) of ``batch['tokens']``
+        over the cache-less stack, and the summed router aux loss (a 0-d
+        float32 tensor, 0 without MoE layers)."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        memory = self._memory_from_batch(params, batch)
+        x, aux = self._run_layers(params, x, positions, None,
+                                  window_override=None, memory=memory,
+                                  with_aux=True)
+        if not isinstance(aux, torch.Tensor):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return _apply_norm(self.cfg, params["final_norm"], x), aux
+
+    def forward(self, params: Params, batch: Dict[str, Any],
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forcing logits (B, S, V) over the whole sequence, and
+        the router aux loss (training)."""
+        h, aux = self._hidden_states(params, batch)
+        return unembed(self._head(params), h,
+                       tied=self.cfg.tie_embeddings), aux
+
+    LOSS_CHUNK = 512
+
+    def loss(self, params: Params, batch: Dict[str, Any],
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Chunked cross entropy of ``batch['labels']`` (-100 masked) plus
+        ``cfg.router_aux_coef`` x the router aux loss; returns (total,
+        ``{"ce", "aux"}``).  The logits exist one LOSS_CHUNK of the
+        sequence at a time, in float32, as in the reference (the sequence
+        is padded to whole chunks with -100 labels): the full (B, S, V)
+        float32 logits of a 150k-vocabulary model would dwarf every other
+        activation."""
+        h, aux = self._hidden_states(params, batch)
+        head = self._head(params)
+        labels = batch["labels"].long()
+        B, S, d = h.shape
+        C = min(self.LOSS_CHUNK, S)
+        pad = (-S) % C
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-100)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        count = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, S + pad, C):
+            chunk = unembed(head, h[:, c0:c0 + C],
+                            tied=self.cfg.tie_embeddings)
+            s_i, n_i = nll_sum(chunk, labels[:, c0:c0 + C])
+            total = total + s_i
+            count = count + n_i
+        ce = total / torch.clamp(count, min=1.0)
+        return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
+
     def prefill(self, params: Params, batch: Dict[str, Any],
                 cache: Dict[str, Any], *,
                 window_override: Optional[int] = None, impl: str = "auto",

@@ -59,6 +59,11 @@ def tree_leaves_with_path(tree: Any) -> List[Tuple[Tuple, Any]]:
     return out
 
 
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree in :func:`tree_leaves_with_path`'s order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
 def _to_torch(arr: Any, device: Any) -> torch.Tensor:
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":

@@ -91,6 +91,24 @@ def quantize_stacked(w: torch.Tensor, *, pad: bool = False,
             torch.stack([s for _, s in parts]))
 
 
+def quantize_params(params, *, min_size: int = 1024):
+    """Every 2-D weight of a parameter tree (dicts and lists of tensors)
+    with at least ``min_size`` elements and a first axis that is a whole
+    number of blocks becomes ``{"q4_packed", "q4_scales"}``; every other
+    leaf stays as it is (the reference's ``quantize_params``, codes and
+    scales bit-equal)."""
+    from ..models.weights import tree_map
+
+    def q(x):
+        if (isinstance(x, torch.Tensor) and x.dim() == 2
+                and x.numel() >= min_size and x.shape[0] % BLOCK == 0):
+            p, s = quantize(x)
+            return {"q4_packed": p, "q4_scales": s}
+        return x
+
+    return tree_map(q, params)
+
+
 def quantized_bytes(shape: Tuple[int, int]) -> int:
     K, N = shape
     return K * N // 2 + (K // BLOCK) * N * 4

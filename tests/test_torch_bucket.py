@@ -295,7 +295,9 @@ def test_bucket_engine_refuses_missing_gpu_and_extra_inputs():
 
 
 def test_serve_cli_bucket_recurrentgemma_on_cpu():
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # the CLI warm-trains first: one thread, as xdist's busy workers share
+    # the cores (parallel CPU ops spin against them otherwise)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", "recurrentgemma-2b", "--engine", "bucket", "--max-new",

@@ -67,7 +67,7 @@ def test_port_cli_prints_the_reference_cli_text(params_npz, engine, flags):
                         ["--engine", engine, "--warmup-steps", "0"] + flags)
     got = _completions("repro_torch.launch.serve",
                        ["--engine", engine, "--device", "cpu", "--params",
-                        params_npz] + flags)
+                        params_npz, "--warmup-steps", "0"] + flags)
     assert got == want
 
 
@@ -83,7 +83,7 @@ def test_port_cli_prints_the_reference_cli_text_for_moe_and_ssd(
                         ["--engine", engine, "--warmup-steps", "0"], arch)
     got = _completions("repro_torch.launch.serve",
                        ["--engine", engine, "--device", "cpu", "--params",
-                        path], arch)
+                        path, "--warmup-steps", "0"], arch)
     assert got == want
 
 
@@ -129,7 +129,8 @@ def test_port_cli_prints_the_reference_cli_text_for_xattn_and_whisper(
     want = [ln for ln in out.stdout.splitlines() if ln.startswith("[")]
     assert len(want) == 4, out.stdout
     got = _completions("repro_torch.launch.serve",
-                       ["--device", "cpu", "--params", path], arch)
+                       ["--device", "cpu", "--params", path,
+                        "--warmup-steps", "0"], arch)
     assert got == want
 
 
@@ -145,7 +146,7 @@ def test_continuous_engine_on_xattn_and_whisper_raises_as_the_reference(
     with pytest.raises(NotImplementedError) as want:
         ref_main()
     with pytest.raises(NotImplementedError) as got:
-        port_main(flags + ["--device", "cpu"])
+        port_main(flags + ["--device", "cpu", "--warmup-steps", "0"])
     assert str(got.value) == str(want.value)
     assert "paged KV cache requires a uniform self-attention stack" in str(
         got.value)
@@ -164,7 +165,7 @@ def test_paged_engines_on_an_ssd_arch_raise_as_the_reference(
     with pytest.raises(NotImplementedError) as want:
         ref_main()
     with pytest.raises(NotImplementedError) as got:
-        port_main(flags + ["--device", "cpu"])
+        port_main(flags + ["--device", "cpu", "--warmup-steps", "0"])
     assert str(got.value) == str(want.value)
     assert "paged KV cache requires a uniform self-attention stack" in str(
         got.value)
@@ -203,7 +204,7 @@ def test_bucket_engine_refuses_paged_flags(flags, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--http", "--interactive"], ["--replicas", "2"], ["--tp-shards", "2"],
-    ["--warmup-steps", "5"], ["--spec-decode", "-1"]])
+    ["--warmup-steps", "-1"], ["--spec-decode", "-1"]])
 def test_unported_and_bad_flags_are_refused(flags):
     with pytest.raises(SystemExit) as ei:
         port_main(["--arch", ARCH, "--device", "cpu", "--engine", "async"]
@@ -251,7 +252,8 @@ def test_async_cli_writes_valid_metrics_and_trace(params_npz, tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--device", "cpu", "--engine", "async", "--spec-decode", "2",
-         "--params", params_npz, "--max-new", "8", "--metrics-json", m,
+         "--params", params_npz, "--warmup-steps", "0", "--max-new", "8",
+         "--metrics-json", m,
          "--trace", t, "--stats-every", "0.01"],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -273,7 +275,7 @@ def test_interactive_cli_streams_each_prompt(params_npz):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--device", "cpu", "--engine", "async", "--params", params_npz,
-         "--max-new", "8", "--interactive"],
+         "--warmup-steps", "0", "--max-new", "8", "--interactive"],
         env=env, input="the kv cache streams\na numa node\n\n",
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -30,7 +30,10 @@ arithmetic, another summation order.
 Tolerance, RG-LRU scan: none.  Kernel and plain version run the same
 sequential recurrence with the same two float32 roundings per step (the
 kernel's ``__fmul_rn`` / ``__fadd_rn`` cannot be fused into an FMA), so
-they must agree bit for bit.
+they must agree bit for bit; so must its reverse mode (the gradient's
+recurrence) and its plain version.  The scan's autograd ``Function``
+with the kernels and with ``impl="ref"`` runs the same float32
+arithmetic around bit-equal scans, so its gradients are held equal.
 """
 
 import numpy as np
@@ -45,7 +48,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.q4_gemm import q4_gemm
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_reverse
 from repro_torch.quant import q4_0, quantize_rows
 
 TOL = 1e-5
@@ -811,3 +814,65 @@ def test_rglru_linear_scan_launches_the_kernel_and_refuses_bad_input():
     with pytest.raises(ValueError, match="on cpu"):
         rglru_scan(a, u.cpu())
     assert rglru_scan.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,W", [
+    (2, 512, 2560), (4, 512, 2560),       # a train step's shapes
+    (1, 2048, 2560),                      # one prompt at the window length
+    (4, "stage-1", 2560), (4, "stage+1", 2560),
+    (2, 100, 36), (2, 37, 64), (3, 1, 5)])
+def test_rglru_reverse_kernel_matches_plain_version(B, T, W):
+    """The reverse mode (tiles and steps last first, a[t+1] carried from
+    the step before) against ``rglru_scan_reverse_ref``, bit for bit, at
+    phase 22's shapes: a train step's, the window length, one step short
+    of and past the plan's stage, W = 36 and 5 (the 4-byte path), a
+    ragged last strip (64 at T = 37) and T = 1."""
+    dev = _device()
+    edge = {"stage-1": -1, "stage+1": 1}.get(T)
+    if edge:
+        T = _stage_edge(B, W, edge, build.sm_count(dev.index or 0))
+    rng = np.random.default_rng(B * T + W + 1)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, W))).to(dev,
+                                                              torch.float32)
+    g = torch.from_numpy(rng.normal(size=(B, T, W))).to(dev, torch.float32)
+    before = rglru_scan_reverse.launches
+    got = rglru_scan_reverse(a, g)
+    torch.cuda.synchronize()
+    assert rglru_scan_reverse.launches == before + 1
+    want = tref.rglru_scan_reverse_ref(a, g)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    assert torch.equal(got, rglru_scan_reverse(a, g))       # repeatable
+    if edge:
+        assert rglru_scan_reverse.plan[1] == T - edge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_linear_scan_gradient_runs_the_reverse_kernel(with_h0):
+    """Backward through ``ops.rglru_linear_scan`` on CUDA tensors
+    launches the reverse mode once, and its gradients equal the plain
+    path's (``impl="ref"``) bit for bit."""
+    dev = _device()
+    rng = np.random.default_rng(3)
+    B, T, W = 2, 300, 96
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, W))).to(dev,
+                                                              torch.float32)
+    u = torch.from_numpy(rng.normal(size=(B, T, W))).to(dev, torch.float32)
+    h0 = torch.from_numpy(rng.normal(size=(B, W))).to(dev, torch.float32)
+    g = torch.from_numpy(rng.normal(size=(B, T, W))).to(dev, torch.float32)
+    grads = {}
+    for impl in ("auto", "ref"):
+        ins = [a.clone().requires_grad_(), u.clone().requires_grad_()]
+        if with_h0:
+            ins.append(h0.clone().requires_grad_())
+        fwd, rev = rglru_scan.launches, rglru_scan_reverse.launches
+        h = ops.rglru_linear_scan(*ins[:2], ins[2] if with_h0 else None,
+                                  impl=impl)
+        grads[impl] = torch.autograd.grad(h, ins, g)
+        torch.cuda.synchronize()
+        n = int(impl == "auto")
+        assert rglru_scan.launches == fwd + n
+        assert rglru_scan_reverse.launches == rev + n
+    for got, want in zip(grads["auto"], grads["ref"]):
+        assert torch.equal(got, want), (got - want).abs().max().item()

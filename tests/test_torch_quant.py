@@ -592,8 +592,10 @@ def test_prefix_sharing_over_int8_pages_copies_codes_and_scales(tiny_tree):
 
 def test_serve_cli_quantized_on_cpu():
     # quantized serving runs on the paged engine; the CLI's default
-    # engine is the bucket engine, which refuses --quant / --kv-dtype
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # engine is the bucket engine, which refuses --quant / --kv-dtype; the
+    # CLI warm-trains first: one thread, as xdist's busy workers share the
+    # cores (parallel CPU ops spin against them otherwise)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", "qwen3-1.7b", "--engine", "continuous", "--quant", "q4",

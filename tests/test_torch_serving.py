@@ -355,6 +355,8 @@ def test_port_imports_without_jax_or_the_reference():
         "import repro_torch.serving.http, repro_torch.serving.router\n"
         "import repro_torch.serving.supervisor, repro_torch.serving.worker\n"
         "from repro_torch.serving import HttpFrontend, Router, Supervisor\n"
+        "import repro_torch.training, repro_torch.launch.train\n"
+        "import repro_torch.training.loop, repro_torch.training.checkpoint\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and (m == 'repro'\n"
         "             or m.startswith(('repro.', 'jax', 'ml_dtypes'))))\n"
@@ -368,7 +370,9 @@ def test_port_imports_without_jax_or_the_reference():
 
 
 def test_serve_cli_on_cpu():
-    env = dict(os.environ, PYTHONPATH=SRC)
+    # the CLI warm-trains first: one thread, as xdist's busy workers share
+    # the cores (parallel CPU ops spin against them otherwise)
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", "qwen3-1.7b", "--engine", "continuous", "--max-new", "4"],
