@@ -235,7 +235,42 @@ non-zero if any phase fails, or if no CUDA device is present:
        (kernel + the elementwise dL/da pass);
     e. the gradients of one full-width RG-LRU block in float32 (B = 2 x
        512) with the scan kernels against the plain scans, within
-       ``BLOCK_GRAD_RTOL`` of each leaf's largest |g|.
+       ``BLOCK_GRAD_RTOL`` of each leaf's largest |g|;
+23. tensor-parallel serving (``ModelRunner``'s mesh mode) on
+    ``TP_RANKS`` = 2 ranks of a gloo process group, both on the one card,
+    started with the ``spawn`` method apart from this process's CUDA
+    context (``launch.mesh.run_ranks``):
+    a. full-width, full-depth Qwen3-1.7B in bf16, phase 5's weights drawn
+       on rank 0 and broadcast, through ``ContinuousServingEngine`` on
+       phase 5's traffic; every rank's tokens equal; against phase 5's
+       tokens under the margin rule (phase 6 keeps one rank's margins
+       along them), and a decode step's logits from phase 6's prefilled
+       state, teacher-forced with phase 6's fed tokens, within 0.125 of
+       phase 6's; one head merge's all-reduce alone, from a CUDA and from
+       a host tensor; one decode step and one prefill chunk each issue exactly
+       ``{"all_reduce": 28}`` (``core.tp.collective_ops_in``); the paged
+       kernel 28 times a decode step on each rank; each rank's pool half
+       of one rank's bytes (4 of 8 kv heads); the paged kernel against
+       its plain version on rank 0's served state, q (8, 4, 2, 128),
+       timed beside SDPA and its bound; per rank a decode step's wall,
+       device busy time and the all-reduces' share of the wall;
+    b. the same under q4 weights and int8 pages against phase 8's
+       state (logits within 0.25;
+       Q4_0 launches 7 x 28 x forward calls on each rank), and the Q4_0
+       kernel at the column shards of w_q (2048, 1024) and w_k / w_v
+       (2048, 512), M 8 and 128, against its plain version and timed;
+    c. ``core.tp.make_tp_block`` MLP and attention at Qwen3 widths (d
+       2048, d_ff 6144, 16 heads, 8 tokens, f32) under Sync A and Sync
+       B on the 2 ranks, against ``mlp_reference`` /
+       ``attention_reference`` on the card (``TP_BLOCK_TOL``), with
+       their collective counts;
+    d. ``core.Engine`` over ``build_tp_mlp_graph`` at the same widths,
+       ``n_nodes`` 1, 2 and 4, on cuda, against ``mlp_reference``; then
+       ``python -m repro_torch.launch.serve --arch tiny --engine
+       continuous --tp-shards 2 --warmup-steps 0 --device cuda`` and
+       ``python -m
+       repro_torch.launch.train --devices 2`` (reduced, 3 steps), side by
+       side: both exit 0 and print their TP / DP lines.
     Phase 11's CLI run takes the serve CLI's default ``--warmup-steps
     40``: it warm-trains on the card before it serves.
 
@@ -254,7 +289,12 @@ launches in 18b, 20 and 21 and its two cross-attention shapes' times,
 the Q4_0 entry its error at 18c's shapes; the scan entry its launches
 in a train step, and an entry for its reverse mode with its launches in
 a train step, its error, its times by shape and the block gradients'
-error; then the two train runs' numbers under ``training``),
+error; the paged entries and the Q4_0 entry their launches per rank in
+phase 23 and their numbers at its shard shapes; then the two train
+runs' numbers under ``training``, and phase 23's per-rank step numbers,
+TP blocks, merge all-reduce times and engine errors under
+``tp_serving``, ``tp_blocks``, ``tp_merge_all_reduce_ms`` and
+``engine_max_abs_err``),
 and as the last line ``{"ok": true, "device":
 {...}}``.  Nothing
 here imports JAX or the reference package.
@@ -264,6 +304,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -564,7 +605,8 @@ def serve(torch, eng, prompts, cfg, kernels, label, card):
     requests with every kernel's launch count set to 0 just before and
     read just after.  Checks completions and the prefix cache; returns
     (launches by kernel name, decode steps, forward calls by phase from
-    ``runner.quant.q4_dispatch`` or None without q4)."""
+    ``runner.quant.q4_dispatch`` or None without q4, the requests'
+    tokens in request order)."""
     from repro_torch.serving import Request, SamplingParams, \
         throughput_report
     V = cfg.vocab_size
@@ -609,7 +651,7 @@ def serve(torch, eng, prompts, cfg, kernels, label, card):
           f" TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms max "
           f"{ttft[-1] * 1e3:.1f} ms, peak memory {peak / 2**30:.2f} GiB — "
           f"{card}", flush=True)
-    return launches, decode_steps, fwd
+    return launches, decode_steps, fwd, [c.tokens for c in comps]
 
 
 def serve_prompts(np, V):
@@ -1388,6 +1430,37 @@ def greedy_margin(torch, model, params, prompt, toks, i, kv_dtype,
     return float(top2[0] - top2[1])
 
 
+def greedy_margins(torch, model, params, prompts, toks, kv_dtype):
+    """The top-2 logit margin at every token of the greedy continuations
+    ``toks`` of ``prompts``, teacher-forced as one batch: one-shot
+    prefills, then ``len(toks[0]) - 1`` decode steps fed ``toks``.  What
+    :func:`greedy_margin` gives one token at a time, kept for the margin
+    rule of a later phase; a list of lists of floats."""
+    ps, B, n = 16, len(prompts), len(toks[0])
+    cache = model.init_cache(B, 1024, page_size=ps, kv_dtype=kv_dtype,
+                             device="cuda")
+    mp = cache["block_tables"].shape[1]
+    cache["block_tables"].copy_(torch.arange(
+        1, B * mp + 1, dtype=torch.int32, device="cuda").reshape(B, mp))
+    margins = torch.zeros((B, n), device="cuda")
+    for b, p in enumerate(prompts):
+        t = torch.zeros((1, 1 << max(3, (len(p) - 1).bit_length())),
+                        dtype=torch.long, device="cuda")
+        t[0, :len(p)] = torch.tensor(p, device="cuda")
+        logits, _ = model.prefill_paged(params, {"tokens": t}, cache, b,
+                                        len(p), page_size=ps)
+        top2 = logits[0, -1].float().topk(2).values
+        margins[b, 0] = top2[0] - top2[1]
+    fed = torch.tensor(toks, device="cuda")
+    pos = torch.tensor([len(p) for p in prompts], device="cuda")
+    for j in range(n - 1):
+        logits, _ = model.decode_step(params, cache, fed[:, j:j + 1],
+                                      pos + j, page_size=ps)
+        top2 = logits[:, 0].float().topk(2, dim=-1).values
+        margins[:, j + 1] = top2[:, 0] - top2[:, 1]
+    return margins.tolist()
+
+
 def spec_prompts(np, V, seed=2):
     """4 prompts of 128-512 tokens, each a random segment repeated (so
     prompt lookup drafts), the middle two sharing a 256-token prefix."""
@@ -1567,12 +1640,13 @@ def async_spec_phase(torch, model, draw_params, cfg, kernels, prompts,
 
 
 def margin_rule(torch, model, params, prompts, got, want, kv_dtype, tol,
-                tag, got_name, want_name, dev="cuda"):
+                tag, got_name, want_name, dev="cuda", margins=None):
     """Greedy tokens ``got`` against ``want`` (lists of token lists, one
     per prompt) under the margin rule: where a request's two first
     differ, ``want``'s top-2 logit margin there (recomputed on one lane
-    with ``params``) must be under ``tol``.  Returns (tokens that agree
-    up to each request's first difference, tokens in all)."""
+    with ``params``, or read from ``margins``, :func:`greedy_margins` of
+    ``want``) must be under ``tol``.  Returns (tokens that agree up to
+    each request's first difference, tokens in all)."""
     agree = total = 0
     for j, (g, w, prompt) in enumerate(zip(got, want, prompts)):
         total += len(w)
@@ -1585,8 +1659,8 @@ def margin_rule(torch, model, params, prompts, got, want, kv_dtype, tol,
             continue
         i = diff[0]
         agree += i
-        margin = greedy_margin(torch, model, params, prompt, w, i, kv_dtype,
-                               dev)
+        margin = (margins[j][i] if margins is not None else greedy_margin(
+            torch, model, params, prompt, w, i, kv_dtype, dev))
         print(f"{tag}: request {j} {got_name} and {want_name} first differ "
               f"at token {i}; {want_name} top-2 margin there {margin:.4f} "
               f"(tol {tol})")
@@ -2306,7 +2380,8 @@ def moe_phase(torch, np, kernels, card):
     eng = ContinuousServingEngine(model, params, max_len=1024, max_running=8,
                                   page_size=16, prefill_chunk=128, seed=0,
                                   device="cuda")
-    counts, steps, _ = serve(torch, eng, prompts, cfg, kernels, "moe", card)
+    counts, steps, _, _ = serve(torch, eng, prompts, cfg, kernels, "moe",
+                                card)
     out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if steps <= 0 or counts["paged_decode_attention"] != L * steps:
         fail(f"18a: paged launches {counts['paged_decode_attention']} != "
@@ -3180,6 +3255,491 @@ def train_phase(torch, kernels, card, gen):
     return out
 
 
+# ----------------------------------------------------------------------
+# 23. tensor-parallel serving on two ranks of the card, the core engine
+# ----------------------------------------------------------------------
+
+#: ranks of phase 23's gloo group, all on the one card
+TP_RANKS = 2
+#: the block-table shuffle of the parity state, seeded alike in phases 6
+#: and 8 (the one-rank side) and on every rank of phase 23 (the tables
+#: are host data every rank must hold alike)
+TP_PARITY_SEED = 7
+#: 23c's TP blocks against the plain blocks at Qwen3 widths in f32: the
+#: same products, their K sums split over the ranks and added in another
+#: order (differences ~1e-6 of values of size ~1): |d| <= TOL (1 + |plain|)
+TP_BLOCK_TOL = 1e-4
+#: the column shards of w_q and w_k / w_v at 2 ranks: (K, N)
+TP_Q4_SHAPES = ((2048, 1024), (2048, 512))
+
+
+def tp_step_stats(torch, step, first, n=4, n_prof=2):
+    """Per-step numbers of ``step(pos)`` on this rank: host wall
+    (synchronised), the all-reduces' host time (each synchronised on
+    both sides, over ``n`` further steps) beside those steps' wall, and
+    device busy time from torch.profiler over ``n_prof`` more (few:
+    ``key_averages`` of a TP step's CPU and CUDA events takes seconds a
+    step).  Every rank runs exactly the same calls: nothing here may
+    branch by rank (a rank that ran one step more would wait in an
+    all-reduce the others never join)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.launch import shardings
+
+    def steps(start):
+        for s in range(n):
+            step(start + s)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(first)
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    orig, spent = shardings.all_reduce, [0.0]
+
+    def timed(x, mesh, axis="model"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = orig(x, mesh, axis)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        return y
+
+    shardings.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        steps(first + n)
+        timed_ms = (time.perf_counter() - t0) / n * 1e3
+    finally:
+        shardings.all_reduce = orig
+    done = []
+
+    def one():
+        step(first + 2 * n + len(done))
+        done.append(1)
+
+    events = profiled(torch, one, n_prof)
+    busy_ms = sum(e.device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")) / n_prof / 1e3
+    ar_ms = spent[0] / n * 1e3
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "all_reduce_ms": ar_ms,
+            "wall_with_timed_all_reduces_ms": timed_ms,
+            "all_reduce_share": ar_ms / timed_ms}
+
+
+def tp_serve_run(torch, np, eng, prompts, cfg, kernels, label):
+    """One rank's share of 23a/23b: phase 5's traffic through the TP
+    engine (a warm-up request over the shared prefix first, as phase 5),
+    with the wrappers' counts set to 0 just before and read just after;
+    returns its tokens, decode steps, forward calls and launches."""
+    from repro_torch.serving import Request, SamplingParams, \
+        throughput_report
+    eng.generate([Request(uid=100, prompt=prompts[2][:256] + [1, 2, 3],
+                          sampling=SamplingParams(max_new_tokens=2))])
+    occ = eng.registry.get("serving.batch.occupancy")
+    disp = eng.registry.get("runner.quant.q4_dispatch")
+    steps0 = occ.value()[1]
+    fwd0 = sum(disp.value(phase=p_) for p_ in ("prefill", "decode")) \
+        if disp else 0
+    st0 = dict(eng.pool.stats)
+    reqs = [Request(uid=i, prompt=p,
+                    sampling=SamplingParams(max_new_tokens=32))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0                     # count the main path only
+    t0 = time.perf_counter()
+    comps = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    steps = int(occ.value()[1] - steps0)
+    fwd = int(sum(disp.value(phase=p_) for p_ in ("prefill", "decode"))
+              - fwd0) if disp else 0
+    st = {k_: eng.pool.stats[k_] - st0.get(k_, 0) for k_ in eng.pool.stats}
+    V = cfg.vocab_size
+    if len(comps) != len(reqs) or any(
+            len(c.tokens) != 32 or not all(0 <= t < V for t in c.tokens)
+            for c in comps):
+        fail(f"[tp] {label}: completions not 8 x 32 in-vocabulary tokens")
+    if st["cached_tokens"] < 2 * 256:
+        fail(f"[tp] {label}: prefix cache not exercised: {st}")
+    if steps <= 0 or launches["paged_decode_attention"] != \
+            cfg.n_layers * steps:
+        fail(f"[tp] {label}: paged launches "
+             f"{launches['paged_decode_attention']} != {cfg.n_layers} x "
+             f"{steps} decode steps on this rank")
+    if disp and launches["q4_gemm"] != 7 * cfg.n_layers * fwd:
+        fail(f"[tp] {label}: q4_gemm launches {launches['q4_gemm']} != 7 "
+             f"x {cfg.n_layers} x {fwd} forward calls on this rank")
+    return {"tokens": [c.tokens for c in comps], "decode_steps": steps,
+            "forward_calls": fwd, "launches": launches, "wall_s": wall_s,
+            "rep": throughput_report(comps, **eng.last_phase_s)}
+
+
+def tp_rank(rank, world, card, feds):
+    """Phase 23a-c on one rank of a ``world``-rank gloo group, every rank
+    on the one card (``launch.mesh.run_ranks``).  ``feds`` holds, by run
+    label, the tokens phases 6 and 8 fed their parity step, which this
+    step is teacher-forced with.  Returns host values, with ``marks``:
+    (what, seconds since the epoch) after each part of the rank's work."""
+    marks = [("start", time.time())]
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.quant import QuantPolicy
+    from repro_torch.serving import ContinuousServingEngine
+
+    mesh = make_mesh((world,), ("model",))
+    marks.append(("in the group", time.time()))
+    cfg = get_config("qwen3-1.7b")
+    model = build_model(cfg)
+    wgen = torch.Generator(device="cuda")
+    # rank 0 draws phase 5's weights; the others draw other ones, which
+    # rank 0's broadcast then replaces (their tokens show it did)
+    wgen.manual_seed(0 if rank == 0 else 1 + rank)
+    params = model.init(wgen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for leaf in tree_leaves(params):
+        tp.broadcast(leaf, mesh)
+    torch.cuda.synchronize()
+    out = {"backend": dist.get_backend(), "broadcast_s":
+           time.perf_counter() - t0, "runs": {}, "marks": marks}
+    marks.append(("weights drawn and broadcast", time.time()))
+    kernels = port_kernels()
+    prompts = serve_prompts(np, cfg.vocab_size)
+    B, D = 8, cfg.resolved_head_dim
+    for label, quant, kv in (
+            ("bf16", None, "fp32"),
+            ("q4 + int8", QuantPolicy(weights="q4", kv_dtype="int8"),
+             "int8")):
+        eng = ContinuousServingEngine(
+            model, params, max_len=1024, max_running=B, page_size=16,
+            prefill_chunk=128, seed=0, quant=quant, mesh=mesh,
+            n_nodes=world, device="cuda")
+        marks.append((f"{label} engine built", time.time()))
+        run = tp_serve_run(torch, np, eng, prompts, cfg, kernels, label)
+        marks.append((f"{label} traffic served", time.time()))
+        r = eng.runner
+        local = r.local_model
+        run["collectives"] = {
+            "decode": tp.collective_ops_in(
+                r.decode, np.zeros((B, 1), np.int64),
+                np.full((B,), -1, np.int64)),
+            "prefill_chunk": tp.collective_ops_in(
+                r.prefill_chunk, prompts[0][:128], slot=0, start=0,
+                fresh=True)}
+        marks.append((f"{label} collectives counted", time.time()))
+        for what, c in run["collectives"].items():
+            if c != {"all_reduce": cfg.n_layers}:
+                fail(f"[tp] {label}: one {what} issued {c}, not "
+                     f"{{'all_reduce': {cfg.n_layers}}}")
+        bufs = [b_ for layer in r.cache["layers"]
+                for b_ in layer["self"].values()]
+        rows = bufs[0].shape[0]
+        row_bytes = D + 4 if kv == "int8" else D * cfg.dtype.itemsize
+        run["pool_bytes"] = sum(b_.numel() * b_.element_size()
+                                for b_ in bufs)
+        run["pool_bytes_one_rank"] = (cfg.n_layers * 2 * rows
+                                      * cfg.n_kv_heads * row_bytes)
+        run["kv_heads_here"] = bufs[0].shape[1]
+        if (run["kv_heads_here"] * world != cfg.n_kv_heads
+                or run["pool_bytes"] * world != run["pool_bytes_one_rank"]):
+            fail(f"[tp] {label}: this rank's pool holds "
+                 f"{run['kv_heads_here']} kv heads, "
+                 f"{run['pool_bytes']} bytes, not 1/{world} of "
+                 f"{run['pool_bytes_one_rank']}")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(TP_PARITY_SEED)
+        cache, clone, _, pos, ps = parity_state(
+            torch, np, gen, local, r.params, prompts, kv)
+        del clone
+        # teacher-forced with the one rank's fed tokens (a near-tie in a
+        # prefill's argmax may pick another one here)
+        fed = torch.from_numpy(feds[label]).cuda()
+        logits, _ = local.decode_step(r.params, cache, fed, pos,
+                                      page_size=ps)
+        run["logits"] = logits[:, 0].float().cpu().numpy()
+        marks.append((f"{label} parity state and step", time.time()))
+        if rank == 0:       # no collective in it: the other ranks wait
+            qgen = torch.Generator(device="cuda")
+            qgen.manual_seed(11)
+            run["kernel"] = time_serving_state(
+                torch, F, ref, kernels["paged_decode_attention"], cache,
+                pos, local.cfg, qgen, f"TP rank 0 {label.split()[-1]}",
+                card)
+        # the other ranks waited for that in their next collective: meet
+        # first, so that no rank's timed steps include the wait
+        tp.broadcast_object(None, mesh)
+        marks.append((f"{label} kernel timed on rank 0", time.time()))
+        run["step"] = tp_step_stats(
+            torch, lambda p_: local.decode_step(r.params, cache, fed, p_,
+                                                page_size=ps), pos + 1)
+        marks.append((f"{label} step timing", time.time()))
+        out["runs"][label] = run
+        del eng, r, local, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one head merge's all-reduce alone, as a decode step issues it
+    # (B, 1, n_heads, D) f32, from a CUDA tensor and from a host one
+    # (gloo alone, no device), each call synchronised
+    merge = (B, 1, cfg.n_heads, D)
+    out["all_reduce_ms"] = {}
+    for where in ("cuda", "cpu"):
+        buf = torch.zeros(merge, device=where)
+        for i in range(55):
+            if i == 5:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            tp.all_reduce(buf, mesh)
+            torch.cuda.synchronize()
+        out["all_reduce_ms"][where] = (time.perf_counter() - t0) / 50 * 1e3
+    marks.append(("all-reduce readings", time.time()))
+    # 23c: make_tp_block at Qwen3 widths, f32
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    d, f, t, H = cfg.d_model, cfg.d_ff, 8, cfg.n_heads
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") / math.sqrt(
+            shape[0])
+
+    mw = {"w_gate": rand(d, f), "w_up": rand(d, f), "w_down": rand(f, d)}
+    aw = {n_: rand(d, d) for n_ in ("w_q", "w_k", "w_v", "w_o")}
+    x = torch.randn(t, d, generator=g, device="cuda")
+    want = {"mlp": tp.mlp_reference(mw, x),
+            "attention": tp.attention_reference(aw, x, H)}
+    out["blocks"] = {}
+    for kind, w, kw in (("mlp", mw, {}), ("attention", aw, {"n_heads": H})):
+        for mode in ("sync_a", "sync_b"):
+            blk = tp.make_tp_block(mesh, kind, sync_mode=mode, **kw)
+            res = {}
+            counts = tp.collective_ops_in(
+                lambda: res.setdefault("z", blk(w, x)))
+            err = (res["z"] - want[kind]).abs()
+            if not bool((err <= TP_BLOCK_TOL
+                         * (1 + want[kind].abs())).all()):
+                fail(f"[tp] {kind} {mode}: TP block off the plain block "
+                     f"by {err.max().item():.3e}")
+            out["blocks"][(kind, mode)] = (err.max().item(), counts)
+    marks.append(("TP blocks", time.time()))
+    return out
+
+
+def tp_phase(torch, np, kernels, card, one_rank):
+    """Phase 23 (see the module docstring) against ``one_rank``, phases 6
+    and 8's one-rank side by run label (served tokens, the parity step's
+    fed tokens and logits, :func:`greedy_margins` of the tokens); returns
+    the numbers the kernels line and PERF.md take."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (Engine, EngineConfig, build_tp_mlp_graph,
+                                  mlp_reference, split_mlp_weights)
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.quant import q4_0
+
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    t_spawn = time.time()
+    ranks = run_ranks(tp_rank, TP_RANKS, (card, {
+        k_: v["fed"] for k_, v in one_rank.items()}), timeout=600,
+        threads=None)
+    print(f"[tp] {TP_RANKS} ranks on one card over "
+          f"{ranks[0]['backend']}: {time.perf_counter() - t0:.1f} s "
+          f"(weights broadcast from rank 0 in "
+          f"{ranks[0]['broadcast_s']:.2f} s) — {card}")
+    for rk_, rk in enumerate(ranks):
+        t_prev, parts = t_spawn, []
+        for what, t_ in rk["marks"]:
+            parts.append(f"{what} {t_ - t_prev:.1f}")
+            t_prev = t_
+        print(f"[tp] rank {rk_} seconds, each part after the one before "
+              f"(the first after the spawn): {'; '.join(parts)}")
+        print(f"[tp] rank {rk_}: one head merge's all-reduce alone, "
+              f"(8, 1, {cfg.n_heads}, {cfg.resolved_head_dim}) f32, "
+              f"synchronised: {rk['all_reduce_ms']['cuda']:.3f} ms from a "
+              f"CUDA tensor, {rk['all_reduce_ms']['cpu']:.3f} ms from a "
+              f"host tensor — {card}")
+    res = {"all_reduce_ms": ranks[0]["all_reduce_ms"]}
+    for label, kv, tol in (("bf16", "fp32", LOGIT_TOL),
+                           ("q4 + int8", "int8", LOGIT_TOL_Q4)):
+        runs = [rk["runs"][label] for rk in ranks]
+        r0, one = runs[0], one_rank[label]
+        if any(r_["tokens"] != r0["tokens"] for r_ in runs[1:]):
+            fail(f"[tp] {label}: the ranks' tokens differ")
+        logit_parity(torch, torch.from_numpy(r0["logits"])[:, None],
+                     torch.from_numpy(one["logits"])[:, None], tol,
+                     f"TP {label} decode logits, 2 ranks vs 1")
+        agree, total = margin_rule(
+            torch, None, None, serve_prompts(np, cfg.vocab_size),
+            r0["tokens"], one["tokens"], kv, tol, f"[tp] {label}",
+            "2 ranks", "1 rank", margins=one["margins"])
+        err, t_k, t_p, t_l, b_ms, b_by, t_bf16, n_split = r0["kernel"]
+        for rk_, r_ in enumerate(runs):
+            s_ = r_["step"]
+            print(f"[tp] {label} rank {rk_}: decode step wall "
+                  f"{s_['wall_ms']:.2f} ms, device busy {s_['busy_ms']:.2f} "
+                  f"ms, all-reduces {s_['all_reduce_ms']:.2f} ms of "
+                  f"{s_['wall_with_timed_all_reduces_ms']:.2f} ms "
+                  f"({s_['all_reduce_share']:.1%}; {cfg.n_layers} a step, "
+                  f"each synchronised); pool {r_['pool_bytes'] / 2**20:.1f}"
+                  f" MiB = 1/{TP_RANKS} of {r_['pool_bytes_one_rank'] / 2**20:.1f}"
+                  f" ({r_['kv_heads_here']} of {cfg.n_kv_heads} kv heads); "
+                  f"launches {r_['launches']} — {card}")
+        print(f"[tp] {label}: {r0['decode_steps']} decode steps, paged "
+              f"kernel {r0['launches']['paged_decode_attention']} = "
+              f"{cfg.n_layers} x {r0['decode_steps']} per rank; "
+              f"collectives {r0['collectives']}; tokens equal on every "
+              f"rank; {agree} of {total} tokens equal to 1 rank's before "
+              f"any first difference; decode "
+              f"{r0['rep']['decode_tok_per_s']:.1f} tok/s, wall "
+              f"{r0['wall_s']:.2f} s — {card}")
+        res[label] = {"launches": r0["launches"],
+                      "decode_steps": r0["decode_steps"],
+                      "forward_calls": r0["forward_calls"],
+                      "step": [r_["step"] for r_ in runs],
+                      "tokens_agree": [agree, total],
+                      "decode_tok_per_s": r0["rep"]["decode_tok_per_s"],
+                      "kernel": {"q": [8, cfg.n_kv_heads // TP_RANKS,
+                                       cfg.n_heads // cfg.n_kv_heads,
+                                       cfg.resolved_head_dim],
+                                 "max_abs_err": err, "ms": t_k,
+                                 "plain_ms": t_p, "library_ms": t_l,
+                                 "bound_ms": b_ms, "bound_by": b_by,
+                                 "bf16_pages_same_state_ms": t_bf16,
+                                 "splits": n_split}}
+    for (kind, mode), (err, counts) in sorted(ranks[0]["blocks"].items()):
+        print(f"[tp] make_tp_block {kind} {mode} (d 2048, d_ff 6144, 16 "
+              f"heads, 8 tokens, f32): max|TP - plain| {err:.3e} (tol "
+              f"{TP_BLOCK_TOL} x (1 + |plain|)); collectives {counts}")
+    want_c = {("mlp", "sync_b"): {"all_reduce": 1},
+              ("attention", "sync_b"): {"all_reduce": 1},
+              ("mlp", "sync_a"): {"all_gather": 1, "all_reduce": 1},
+              ("attention", "sync_a"): {"all_gather": 3, "all_reduce": 1}}
+    for rk in ranks:
+        if {k_: c for k_, (_, c) in rk["blocks"].items()} != want_c:
+            fail(f"[tp] TP block collectives {rk['blocks']}")
+    res["blocks"] = {f"{k_[0]} {k_[1]}": v for k_, v in
+                     ranks[0]["blocks"].items()}
+
+    # kernel #3 at the column shards of w_q and w_k / w_v
+    q4k = kernels["q4_gemm"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    q4_tp = {}
+    for K, N in TP_Q4_SHAPES:
+        w = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
+        packed, scales = q4_0.quantize(w)
+        dense_w = q4_0.dequantize(packed, scales, torch.bfloat16)
+        qbytes = packed.numel() + scales.numel() * 4
+        nq = max(2, math.ceil(ROTATE_BYTES / qbytes))
+        nd = max(2, math.ceil(ROTATE_BYTES / (K * N * 2)))
+        qw = [(packed.clone(), scales.clone()) for _ in range(nq)]
+        dw = [dense_w.clone() for _ in range(nd)]
+        for M in (8, 128):
+            x = torch.randn(M, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            err = check_q4(torch, q4k(x, packed, scales),
+                           ref.q4_gemm_ref(x, packed, scales),
+                           f"TP q4_gemm M={M} K={K} N={N}")
+            t_k = cuda_ms(torch, lambda i: q4k(x, *qw[i % nq]),
+                          200 if M == 8 else 50)
+            t_p = cuda_ms(torch, lambda i: ref.q4_gemm_ref(
+                x, *qw[i % nq]).to(x.dtype), 10)
+            t_d = cuda_ms(torch, lambda i: x @ dw[i % nd], 200)
+            b_ms, b_by = q4_bound(M, K, N, 2, "bfloat16")
+            q4_tp[(K, N, M)] = (t_k, t_p, t_d, b_ms, b_by, err)
+            print(f"[timing] TP shard q4_gemm M={M} K={K} N={N} x bf16: "
+                  f"max|kernel-plain| {err:.3e}; kernel {t_k * 1e3:.1f} us,"
+                  f" plain {t_p * 1e3:.1f} us, dense bf16 matmul (context) "
+                  f"{t_d * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})"
+                  f" — {card}")
+        del qw, dw, packed, scales, dense_w
+    res["q4_tp"] = q4_tp
+    torch.cuda.empty_cache()
+
+    # 23d: the core engine on the card, then the two CLIs
+    d, f, t = cfg.d_model, cfg.d_ff, 8
+    gen.manual_seed(6)
+    w = {"w_gate": torch.randn(f, d, generator=gen, device="cuda")
+         / math.sqrt(d),
+         "w_up": torch.randn(f, d, generator=gen, device="cuda")
+         / math.sqrt(d),
+         "w_down": torch.randn(d, f, generator=gen, device="cuda")
+         / math.sqrt(f)}
+    x = torch.randn(d, t, generator=gen, device="cuda")
+    plain_z = mlp_reference({k_: v.T for k_, v in w.items()}, x.T).T
+    res["engine"] = {}
+    for n_nodes in (1, 2, 4):
+        eng = Engine(EngineConfig(n_nodes=n_nodes, device="cuda"))
+        _, z = build_tp_mlp_graph(eng, d, f, t)
+        rep = eng.execute({"x": x}, dict(w) if n_nodes == 1
+                          else split_mlp_weights(w, n_nodes))
+        got = rep.outputs[z.single.name]
+        if got.device.type != "cuda":
+            fail(f"[engine] n_nodes={n_nodes}: output on {got.device}")
+        err = (got - plain_z).abs()
+        if not bool((err <= TP_BLOCK_TOL * (1 + plain_z.abs())).all()):
+            fail(f"[engine] n_nodes={n_nodes}: off mlp_reference by "
+                 f"{err.max().item():.3e}")
+        res["engine"][n_nodes] = err.max().item()
+        print(f"[engine] Engine over build_tp_mlp_graph, n_nodes "
+              f"{n_nodes} on cuda: {rep.node_count} nodes, "
+              f"{rep.barrier_count} barriers, max|engine - mlp_reference| "
+              f"{err.max().item():.3e}")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmds = {
+        "serve": [sys.executable, "-m", "repro_torch.launch.serve",
+                  "--arch", "tiny", "--engine", "continuous",
+                  "--tp-shards", "2", "--warmup-steps", "0",
+                  "--device", "cuda"],
+        "train": [sys.executable, "-m", "repro_torch.launch.train",
+                  "--arch", "qwen3-1.7b", "--devices", "2", "--steps", "3",
+                  "--batch", "4", "--seq-len", "64", "--device", "cuda"]}
+    t0 = time.perf_counter()
+    procs = {k_: subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+             for k_, c in cmds.items()}
+    outs = {}
+    for k_, p in procs.items():
+        try:
+            outs[k_] = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail(f"[cli] --{k_} with 2 ranks did not finish in 300 s")
+        if p.returncode:
+            print(outs[k_][1][-3000:])
+            fail(f"[cli] {' '.join(cmds[k_][2:])} exited {p.returncode}")
+    so = outs["serve"][0]
+    done = [ln for ln in so.splitlines() if ln.startswith("[")]
+    if not ("tp mesh: 2-way 'model' axis over 2 gloo ranks" in so
+            and "tp pool:" in so and "throughput:" in so and len(done) == 4
+            and all(" -> " in ln for ln in done)):
+        print(so)
+        fail("[cli] the --tp-shards 2 serve CLI's text")
+    to = outs["train"][0]
+    if not ("devices=2" in to and re.search(r"loss [0-9.]+ -> [0-9.]+", to)):
+        print(to)
+        fail("[cli] the --devices 2 train CLI's text")
+    print(f"[cli] serve --tp-shards 2 and train --devices 2 on the card, "
+          f"both exit 0 ({time.perf_counter() - t0:.1f} s, run side by "
+          f"side); {[ln for ln in so.splitlines() if ln.startswith('tp ')]}"
+          f"; {to.strip().splitlines()[-1]}")
+    return res
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch under {ROOT}: run chip_smoke.py from the "
@@ -3423,8 +3983,8 @@ def main() -> int:
     eng = ContinuousServingEngine(model, params, max_len=1024, max_running=8,
                                   page_size=16, prefill_chunk=128, seed=0,
                                   device="cuda")
-    counts, decode_steps, _ = serve(torch, eng, prompts, cfg, kernels,
-                                    "serve", card)
+    counts, decode_steps, _, tokens_bf16 = serve(
+        torch, eng, prompts, cfg, kernels, "serve", card)
     launches = counts["paged_decode_attention"]
     if decode_steps <= 0 or launches != cfg.n_layers * decode_steps:
         fail(f"kernel launches {launches} != {cfg.n_layers} x "
@@ -3434,14 +3994,23 @@ def main() -> int:
             fail(f"bf16 paged serving launched {name} {counts[name]} times")
 
     # -- 6. decode parity on the card (bf16) -----------------------------
+    # its state, fed tokens and logits, and the margins along the served
+    # tokens, are also phase 23's one-rank side
+    tgen = torch.Generator(device="cuda")
+    tgen.manual_seed(TP_PARITY_SEED)
     cache, clone, fed_t, pos, ps = parity_state(
-        torch, np, gen, model, eng.runner.params, prompts, "fp32")
+        torch, np, tgen, model, eng.runner.params, prompts, "fp32")
     got, _ = model.decode_step(eng.runner.params, cache, fed_t, pos,
                                page_size=ps)
     want, _ = model.decode_step(eng.runner.params, clone, fed_t, pos,
                                 page_size=ps, impl="ref")
     logit_parity(torch, got, want, LOGIT_TOL,
                  "full-width decode logits, kernel vs plain")
+    one_rank = {"bf16": {
+        "tokens": tokens_bf16, "fed": fed_t.cpu().numpy(),
+        "logits": got[:, 0].float().cpu().numpy(),
+        "margins": greedy_margins(torch, model, eng.runner.params, prompts,
+                                  tokens_bf16, "fp32")}}
     err6, t_k, t_p, t_l, b_ms, b_by, _, n_split = time_serving_state(
         torch, F, ref, kernel, cache, pos, cfg, gen, "bf16", card)
     max_err = max(max_err, err6)
@@ -3470,8 +4039,8 @@ def main() -> int:
           f"{t_load:.2f} s; params {param_bytes(qparams) / 2**30:.3f} GiB, "
           f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
           f"(weights + int8 page pool)")
-    counts_q, steps_q, fwd_q = serve(torch, eng, prompts, cfg, kernels,
-                                     "q4", card)
+    counts_q, steps_q, fwd_q, tokens_q4 = serve(
+        torch, eng, prompts, cfg, kernels, "q4", card)
     fwd_prefill, fwd_decode = fwd_q["prefill"], fwd_q["decode"]
     fwd = fwd_prefill + fwd_decode
     launches_q4 = counts_q["q4_gemm"]
@@ -3491,8 +4060,9 @@ def main() -> int:
           f"{launches_i8} = {cfg.n_layers} x {steps_q} decode steps")
 
     # -- 8. quantized decode parity on the card --------------------------
+    tgen.manual_seed(TP_PARITY_SEED)
     cache, clone, fed_t, pos, ps = parity_state(
-        torch, np, gen, model, qparams, prompts, "int8")
+        torch, np, tgen, model, qparams, prompts, "int8")
     got, _ = model.decode_step(qparams, cache, fed_t, pos, page_size=ps)
     model.qmm = make_qmm("ref")
     want, _ = model.decode_step(qparams, clone, fed_t, pos, page_size=ps,
@@ -3500,6 +4070,11 @@ def main() -> int:
     model.qmm = make_qmm(qp.impl)
     logit_parity(torch, got, want, LOGIT_TOL_Q4,
                  "q4 + int8 decode logits, kernels vs plain")
+    one_rank["q4 + int8"] = {
+        "tokens": tokens_q4, "fed": fed_t.cpu().numpy(),
+        "logits": got[:, 0].float().cpu().numpy(),
+        "margins": greedy_margins(torch, model, qparams, prompts, tokens_q4,
+                                  "int8")}
     err8, t_k8, t_p8, t_l8, b8_ms, b8_by, t_bf16, n_split8 = (
         time_serving_state(torch, F, ref, kernel, cache, pos, cfg, gen,
                            "int8", card))
@@ -3692,6 +4267,15 @@ def main() -> int:
     tr = train_phase(torch, kernels, card, gen)
     rev = tr["reverse_times"]
     t_rv, t_rv_p, b_rv, b_rv_by, rv_plan, _ = rev[REVERSE_SHAPES[0]]
+
+    # -- 23. tensor-parallel serving on two ranks, the core engine -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(t_start, "phase 23, tensor-parallel serving on 2 ranks")
+    tpr = tp_phase(torch, np, kernels, card, one_rank)
+    max_err = max(max_err, tpr["bf16"]["kernel"]["max_abs_err"])
+    err_i8 = max(err_i8, tpr["q4 + int8"]["kernel"]["max_abs_err"])
+    err_q4 = max([err_q4] + [t[5] for t in tpr["q4_tp"].values()])
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     paged_src = "src/repro_torch/csrc/paged_decode_attention.cu"
     print(json.dumps({"kernels": [{
@@ -3722,6 +4306,9 @@ def main() -> int:
                               "library_ms": moe["paged_sdpa_ms"],
                               "bound_ms": moe["paged_bound_ms"],
                               "max_abs_err": moe["paged_err"]},
+        "tp_rank_serving_state": tpr["bf16"]["kernel"],
+        "launches_tp_per_rank": tpr["bf16"]["launches"][
+            "paged_decode_attention"],
     }, {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -3740,6 +4327,9 @@ def main() -> int:
         "launches_async_spec": spec["q4 + int8"]["async"][SPEC_K][
             "launches"]["paged_decode_attention"],
         "verify_step_device_ms_per_call": spec["q4 + int8"]["paged_verify"],
+        "tp_rank_serving_state": tpr["q4 + int8"]["kernel"],
+        "launches_tp_per_rank": tpr["q4 + int8"]["launches"][
+            "paged_decode_attention"],
     }, {
         "name": "q4_gemm",
         "route": "cuda",
@@ -3769,6 +4359,12 @@ def main() -> int:
             "launches"]["q4_gemm"],
         "verify_step_device_ms": spec["q4 + int8"]["q4_verify"],
         "moe_attention_shapes_max_abs_err": moe["q4_err"],
+        "launches_tp_per_rank": tpr["q4 + int8"]["launches"]["q4_gemm"],
+        "tp_shards_by_shape": [
+            {"K": K, "N": N, "M": M, "ms": t[0], "plain_ms": t[1],
+             "dense_bf16_matmul_ms": t[2], "bound_ms": t[3],
+             "bound_by": t[4], "max_abs_err": t[5]}
+            for (K, N, M), t in sorted(tpr["q4_tp"].items())],
     }, {
         "name": "decode_attention",
         "route": "cuda",
@@ -3840,6 +4436,12 @@ def main() -> int:
         "block_grad_rel_err": tr["block_grad_rel"],
     }], "training": {k: {n: v for n, v in tr[k].items() if n != "launches"}
                      for k in ("qwen", "rg")},
+        "tp_serving": {label: {n: v for n, v in tpr[label].items()
+                               if n not in ("kernel", "launches")}
+                       for label in ("bf16", "q4 + int8")},
+        "tp_blocks": tpr["blocks"],
+        "tp_merge_all_reduce_ms": tpr["all_reduce_ms"],
+        "engine_max_abs_err": tpr["engine"],
         "profile_retraces": kernel_times.retraces}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -60,10 +60,20 @@ reference's recipe (:func:`warm_up`), so the outputs are not noise.
 ``--http --replicas N`` serves its workers' own weights untrained, as the
 reference's fleet does.
 
+Tensor-parallel serving: ``--tp-shards S`` (paged engines) serves on S
+ranks of a gloo process group started by this one command: this process
+is rank 0 and spawns the other S - 1 (``spawn`` start method, a
+``file://`` store in a temporary directory), which print nothing.  Each
+rank holds its share of the attention heads and of every KV page
+(``serving.runner.ModelRunner``'s mesh mode, rank ≅ NUMA node) and one
+all-reduce per layer merges the heads.  The warm-up trains on rank 0,
+whose weights every rank then takes (a broadcast).  On the card all
+ranks share the one GPU; gloo carries their all-reduces.  The reference's
+refusals stand: not with the bucket engine, not with ``--replicas N``.
+
 It runs on the GPU (``--device cuda``, the default) and raises when no
 GPU is present; ``--device cpu`` runs it on the CPU.  ``--arch tiny`` is
-the benchmark suite's bench-tiny model.  Tensor-parallel serving
-(``--tp-shards``) is not ported.
+the benchmark suite's bench-tiny model.
 
 Examples:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
@@ -80,6 +90,8 @@ Examples:
         --max-running 4 --page-size 16 --prefill-chunk 8 --device cpu
     python -m repro_torch.launch.serve --arch tiny --engine async --http \\
         --replicas 2 --port 8080
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --engine continuous \\
+        --tp-shards 2
 """
 
 import argparse
@@ -209,7 +221,37 @@ def _serve_replicated(args) -> int:
     return _serve_http(fe, port_file=args.port_file, supervisor=sup)
 
 
-def main(argv=None) -> int:
+def _print_shard_stats(pool) -> None:
+    """Per-shard / per-node KV pool residency under --tp-shards: every
+    shard reserves its head slice of every node's pages."""
+    shard = pool.capacity_bytes_per_shard()
+    node = pool.capacity_bytes_per_node()
+    live = pool.live_bytes_per_node()
+    print("tp pool: "
+          + ", ".join(f"shard{s} {b / 1024:.0f} KiB"
+                      for s, b in sorted(shard.items())))
+    print("tp pages: "
+          + ", ".join(f"node{n} {live.get(n, 0) / 1024:.0f}"
+                      f"/{b / 1024:.0f} KiB live"
+                      for n, b in sorted(node.items())))
+
+
+def _tp_rank(argv, rank: int, world: int, init: str) -> int:
+    """One ``--tp-shards`` rank (``launch.mesh.lead_ranks``): join the
+    gloo group, serve, leave it."""
+    import torch.distributed as dist
+
+    from .mesh import init_group, make_mesh
+    ap = _parser()
+    args = ap.parse_args(argv)
+    init_group(rank, world, init)
+    try:
+        return _serve(args, ap, mesh=make_mesh((world,), ("model",)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -262,6 +304,11 @@ def main(argv=None) -> int:
                     help="paged engines: self-speculative decoding — "
                          "draft up to K tokens per step by prompt lookup "
                          "and verify them in one batched forward")
+    ap.add_argument("--tp-shards", type=int, default=1,
+                    help="paged engines: tensor-parallel shards — serve "
+                         "on that many ranks of a gloo process group "
+                         "(rank ≅ NUMA node), the attention heads and "
+                         "every KV page head-sharded over them")
     ap.add_argument("--warmup-steps", type=int, default=40,
                     help="brief LM warm-up so outputs aren't noise "
                          "(0 = random weights)")
@@ -303,6 +350,12 @@ def main(argv=None) -> int:
     ap.add_argument("--breaker-threshold", type=int, default=3,
                     help="--replicas: consecutive worker failures that "
                          "open the router's circuit breaker")
+    return ap
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = _parser()
     args = ap.parse_args(argv)
     if args.engine == "bucket" and (args.metrics_json or args.trace
                                     or args.stats_every):
@@ -323,6 +376,11 @@ def main(argv=None) -> int:
         ap.error("--replicas needs --http")
     if args.max_respawns < 0:
         ap.error("--max-respawns must be >= 0")
+    if args.tp_shards < 1:
+        ap.error("--tp-shards must be >= 1")
+    if args.tp_shards > 1 and args.engine == "bucket":
+        ap.error("--tp-shards serves through the paged engines; "
+                 "use --engine continuous or async")
     if args.http:
         if args.engine != "async":
             ap.error("--http serves through the async engine; add "
@@ -330,8 +388,20 @@ def main(argv=None) -> int:
         if args.interactive:
             ap.error("--http and --interactive are exclusive")
         if args.replicas:
+            if args.tp_shards > 1:
+                ap.error("--replicas spawns single-shard workers; "
+                         "--tp-shards applies to --replicas 0")
             return _serve_replicated(args)
+    if args.tp_shards > 1:
+        from .mesh import lead_ranks
+        return lead_ranks(_tp_rank, argv, args.tp_shards)
+    return _serve(args, ap)
 
+
+def _serve(args, ap, *, mesh=None) -> int:
+    """Build, warm up and serve; under ``--tp-shards`` on this rank of
+    ``mesh`` (rank 0 warm-trains, leads the async engine and writes the
+    files)."""
     import time
 
     import torch
@@ -365,9 +435,18 @@ def main(argv=None) -> int:
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
           + (f", weights from {args.params}" if args.params else ""))
-    if args.warmup_steps:
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        print(f"tp mesh: {mesh.shape['model']}-way 'model' axis over "
+              f"{mesh.size} gloo ranks on {device} (shard ≅ NUMA node)")
+    if args.warmup_steps and lead:
         print(f"warm-up training ({args.warmup_steps} steps) ...")
         params, _ = warm_up(model, params, args.warmup_steps)
+    if mesh is not None:            # every rank serves rank 0's weights
+        from ..core.tp import broadcast
+        from ..models.weights import tree_leaves
+        for leaf in tree_leaves(params):
+            broadcast(leaf, mesh)
 
     prompts = args.prompt or ["the scheduler binds", "a numa node",
                               "the kv cache streams", "one thread gathers"]
@@ -400,12 +479,16 @@ def main(argv=None) -> int:
                     n_pages=args.n_pages, prefill_chunk=args.prefill_chunk,
                     prefix_cache=not args.no_prefix_cache, quant=quant,
                     spec_decode=args.spec_decode, tracer=tracer,
+                    mesh=mesh, n_nodes=max(args.tp_shards, 1),
                     device=device)
     if args.engine == "async":
         eng = AsyncEngine(
             model, params,
             max_len=max(max_len, 256 + args.max_new)
             if (args.interactive or args.http) else max_len, **paged_kw)
+        if not lead:        # a follower steps as rank 0's engine does
+            eng.shutdown(timeout=None)
+            return 0
         if args.http:        # --replicas 0: in-process engine over HTTP
             from ..serving.http import HttpFrontend
             fe = HttpFrontend(eng, tokenizer=tok, host=args.host,
@@ -451,6 +534,8 @@ def main(argv=None) -> int:
               f"{st['shared_pages']} shared, {st['cow_copies']} CoW, "
               f"{st['cached_tokens']} prompt tokens from cache, "
               f"{st['retention_hits']} retention hits")
+        if mesh is not None:
+            _print_shard_stats(eng.core.pool)
         ttft = sorted(c.t_first - ts for c, ts in zip(comps, t_submit))
         print(f"ttft: p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, "
               f"max {ttft[-1] * 1e3:.1f} ms")
@@ -468,6 +553,8 @@ def main(argv=None) -> int:
         print(f"kv pool: {st['fresh_pages']} pages allocated, "
               f"{st['shared_pages']} shared, {st['cow_copies']} CoW, "
               f"{st['cached_tokens']} prompt tokens served from cache")
+        if mesh is not None:
+            _print_shard_stats(eng.pool)
     else:
         eng = ServingEngine(model, params, max_len=max_len, device=device)
         comps = eng.generate(reqs, max_batch=args.max_batch)
@@ -479,11 +566,11 @@ def main(argv=None) -> int:
     rep = throughput_report(comps, **phase)
     print("throughput:", {k: round(v, 2) if isinstance(v, float) else v
                           for k, v in rep.items()})
-    if args.metrics_json:
+    if args.metrics_json and lead:
         with open(args.metrics_json, "w") as f:
             f.write(eng.registry.snapshot_json())
         print(f"metrics snapshot -> {args.metrics_json}")
-    if tracer is not None:
+    if tracer is not None and lead:
         n = tracer.write_jsonl(args.trace)
         print(f"trace: {n} events -> {args.trace}")
     return 0

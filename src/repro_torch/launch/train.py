@@ -12,9 +12,18 @@ checkpointing — and prints the reference's lines (``arch=... params=...``,
 
 It runs on the GPU (``--device cuda``, the default: the RG-LRU scan and
 its gradient run the port's hand-written kernel there) and raises when
-no GPU is present; ``--device cpu`` runs it on the CPU.  The reference's
-``--devices N`` (a host data-parallel mesh) is not ported and is
-refused, as is tensor parallelism in the serve CLI.
+no GPU is present; ``--device cpu`` runs it on the CPU.
+
+``--devices N`` trains data parallel on N ranks of a gloo process group
+that this one command starts (it is rank 0 and spawns the others, which
+print nothing): every rank draws the same batches, takes its 1/N of each
+one's rows, and the gradients, each weighted by its rank's share of the
+loss tokens, are all-reduced before AdamW
+(``training.loop.make_train_step(mesh=)``), so the printed losses are
+the full batch's (with ``--microbatches 1``: more is refused).  Rank 0's
+initial weights are broadcast to the others
+and rank 0 writes the checkpoint.  On the card all ranks share the one
+GPU.
 
 Examples:
     python -m repro_torch.launch.train --arch qwen3-1.7b --steps 60
@@ -22,6 +31,8 @@ Examples:
         --seq-len 64 --batch 8
     python -m repro_torch.launch.train --arch qwen3-1.7b --full-config \\
         --steps 5 --batch 4 --seq-len 512
+    python -m repro_torch.launch.train --arch qwen3-1.7b --steps 10 \\
+        --devices 2   # 2-way data parallel
 """
 
 import argparse
@@ -49,7 +60,7 @@ def stub_extras(cfg):
     return extra_fn
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -63,18 +74,51 @@ def main(argv=None) -> int:
     ap.add_argument("--full-config", action="store_true",
                     help="use the production config (bf16, full size)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="the reference's host data-parallel mesh (not "
-                         "ported: refused)")
+                    help="train data parallel on N ranks of a gloo "
+                         "process group (0 or 1: one process)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; no GPU "
                          "raises instead of falling back to the CPU)")
-    args = ap.parse_args(argv)
-    if args.devices:
-        ap.error("--devices: data-parallel training is not ported yet "
-                 "(one device; see ROADMAP)")
-    if args.microbatches < 1 or args.batch % args.microbatches:
-        ap.error("--microbatches must divide --batch")
+    return ap
 
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.devices < 0:
+        ap.error("--devices must be >= 0")
+    if args.devices > 1 and args.batch % args.devices:
+        ap.error("--devices must divide --batch")
+    per_rank = args.batch // max(args.devices, 1)
+    if args.microbatches < 1 or per_rank % args.microbatches:
+        ap.error("--microbatches must divide each rank's --batch rows")
+    if args.devices > 1 and args.microbatches > 1:
+        ap.error("--devices N trains with --microbatches 1 only")
+    if args.devices > 1:
+        from .mesh import lead_ranks
+        return lead_ranks(_dp_rank, argv, args.devices)
+    return _train(args, ap)
+
+
+def _dp_rank(argv, rank: int, world: int, init: str) -> int:
+    """One ``--devices`` rank (``launch.mesh.lead_ranks``): join the
+    gloo group, train, leave it."""
+    import torch.distributed as dist
+
+    from .mesh import init_group, make_host_mesh
+    ap = _parser()
+    args = ap.parse_args(argv)
+    init_group(rank, world, init)
+    try:
+        return _train(args, ap, mesh=make_host_mesh(model=1, data=world))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, ap, *, mesh=None) -> int:
+    """Train on one process, or on this rank of ``mesh``'s ``"data"``
+    axis (rank 0 writes the checkpoint)."""
     import time
 
     import torch
@@ -96,19 +140,25 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, dtype=torch.float32,
                                   capacity_factor=4.0)
     model = build_model(cfg)
+    n_ranks = mesh.size if mesh is not None else 1
     print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"(reduced={not args.full_config}) devices=1 ({device})")
+          f"(reduced={not args.full_config}) devices={n_ranks} ({device})")
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = model.init(gen)
+    if mesh is not None:            # every rank starts from rank 0's
+        from ..core.tp import broadcast
+        from ..models.weights import tree_leaves
+        for leaf in tree_leaves(params):
+            broadcast(leaf, mesh)
     ds = PackedLMDataset(seq_len=args.seq_len, n_docs=2000,
                          vocab_size=cfg.vocab_size)
     batches = ds.batches(args.batch, extra_fn=stub_extras(cfg))
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 2),
                           total_steps=args.steps)
     step_fn = make_train_step(model, opt_cfg,
-                              microbatches=args.microbatches)
+                              microbatches=args.microbatches, mesh=mesh)
     opt_state = adamw_init(params)
     t0 = time.time()
     first = last = None
@@ -124,7 +174,7 @@ def main(argv=None) -> int:
                   f"gnorm {float(metrics['grad_norm']):.2f} "
                   f"({time.time() - t0:.1f}s)")
     print(f"loss {first:.3f} -> {last:.3f}")
-    if args.ckpt:
+    if args.ckpt and (mesh is None or mesh.rank == 0):
         print("checkpoint:", save_checkpoint(args.ckpt, args.steps,
                                              {"params": params}))
     return 0

@@ -76,6 +76,11 @@ as in the reference.  ``init_cache(kv_dtype="int8")``
 allocates int8 pages with per-(row, kv head) f32 scales
 (``repro_torch.quant.kv_int8``).
 
+Tensor-parallel serving: ``Model.paged_head_merge`` (default ``None``)
+is the reference's hook; ``ModelRunner`` sets it on a rank's local
+model (its head counts divided by the shard count), and every paged
+attention output then goes through it before ``w_o``.
+
 MoE layers (``repro_torch.models.moe``) take the reference's
 ``cfg.moe_impl`` and ``cfg.capacity_factor``; each layer's router aux
 loss is summed over the stack as in the reference under
@@ -454,6 +459,14 @@ def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
             out = flash_attention(q, k, v, **kw)
     elif paged is not None:
         out = _paged_attn(cfg, q, k, v, window, cache, paged)
+        merge = paged.get("head_merge")
+        if merge is not None:
+            # head-sharded TP serving (launch.shardings.make_paged_head_
+            # merge): ``out`` holds this rank's query heads; the merge
+            # (one all-reduce, the layer's only collective) gives the
+            # full head set, so the replicated w_o below sees the
+            # single-rank engine's operand, bit for bit
+            out = merge(out)
     else:
         out = _ring_attn(cfg, q, k, v, positions, window, cache, ring)
     return proj(out.reshape(B, S, -1), ap["w_o"], qmm)
@@ -594,6 +607,10 @@ class Model:
         #: quantized-matmul hook (``repro_torch.quant.make_qmm``), set by
         #: ``ModelRunner`` under ``--quant q4``; None = dense ``x @ w``
         self.qmm = None
+        #: head merge of tensor-parallel paged serving
+        #: (``launch.shardings.make_paged_head_merge``), set by
+        #: ``ModelRunner`` on a rank's local model; None = one rank
+        self.paged_head_merge = None
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
@@ -1023,6 +1040,8 @@ class Model:
         write_slots = torch.where(offsets < plen, phys, offsets % page_size)
         paged: Dict[str, Any] = {"page_size": page_size,
                                  "write_slots": write_slots}
+        if self.paged_head_merge is not None:
+            paged["head_merge"] = self.paged_head_merge
         if start is not None:
             if ctx_pages is None:
                 raise ValueError("resumed prefill needs ctx_pages")
@@ -1080,6 +1099,8 @@ class Model:
                                                       page_size)
         paged = {"page_size": page_size, "write_slots": write_slots,
                  "block_tables": bt, "kv_len": kv_len, "impl": impl}
+        if self.paged_head_merge is not None:
+            paged["head_merge"] = self.paged_head_merge
         x, _ = self._run_layers(params, self._embed(params, tokens),
                                 positions, cache["layers"],
                                 window_override=window_override,
@@ -1114,6 +1135,8 @@ class Model:
         paged = {"page_size": page_size, "write_slots": write_slots,
                  "block_tables": bt, "kv_len": kv_len, "verify": True,
                  "impl": impl}
+        if self.paged_head_merge is not None:
+            paged["head_merge"] = self.paged_head_merge
         x, _ = self._run_layers(params, self._embed(params, tokens),
                                 positions, cache["layers"],
                                 window_override=window_override,

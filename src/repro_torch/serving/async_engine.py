@@ -37,6 +37,18 @@ no work and the inbox is empty: an idle engine costs zero CPU, and
 ``submit`` wakes it.  ``shutdown()`` stops the loop, joins the thread,
 and cancels whatever was still in flight.
 
+Tensor parallelism (``mesh=``, forwarded to the core): every rank
+builds an ``AsyncEngine``; callers submit, poll and cancel on rank 0,
+the **leader**.  Each iteration of the leader's stepper broadcasts one
+step record — the requests it takes in, the cancellations, the handles
+a callback failed, its clock reading and whether it is still up — and
+the other ranks' steppers (**followers**) apply that record and step,
+so every rank's core takes the same decisions.  An idle leader parks
+for at most ``TP_HEARTBEAT_S`` before it sends an empty record (its
+followers wait in that broadcast, and no rank steps on it); its
+``shutdown`` sends the record that stops them, and a follower's
+``shutdown`` waits for it.
+
 Device: torch keeps the current CUDA device and stream per thread, so
 the stepper makes the runner's device current itself before its first
 step.  A CUDA error raised on the stepper (a failed launch included)
@@ -58,6 +70,11 @@ from ..models.transformer import Model
 from .core import Clock, EngineCore
 from .engine import Completion, Request
 from .scheduler import Sequence
+
+
+#: longest a tensor-parallel leader's stepper parks idle before it sends
+#: its followers an empty step record
+TP_HEARTBEAT_S = 1.0
 
 
 class RequestState(enum.Enum):
@@ -149,6 +166,13 @@ class AsyncEngine:
         self._alive = True
         self._error: Optional[BaseException] = None
         self._clock0 = self.core.clock.now()
+        mesh = self.core.mesh
+        #: tensor-parallel ranks: rank 0 leads, the others follow its
+        #: step records (see the module docstring)
+        self._tp = mesh is not None and mesh.size > 1
+        self._follower = self._tp and mesh.rank != 0
+        #: uids whose handle a callback failed since the last record
+        self._tp_failed: List[int] = []
         # stepper telemetry (core.registry; bound handles — the loop
         # never touches the registry itself)
         reg = self.core.registry
@@ -189,6 +213,9 @@ class AsyncEngine:
         every request.  A raising callback fails *this* handle (its
         sequence is torn down, pages freed), never the engine.
         """
+        if self._follower:
+            raise RuntimeError("submit on rank 0 of a tensor-parallel "
+                               "mesh: the other ranks follow its steps")
         with self._wake:
             self._check_alive()
             uid = next(self._uids)
@@ -265,9 +292,11 @@ class AsyncEngine:
 
     def shutdown(self, *, timeout: Optional[float] = 30.0) -> None:
         """Stop the stepper, join its thread, and cancel every request
-        still in flight.  Idempotent."""
+        still in flight.  Idempotent.  A tensor-parallel follower's
+        stepper stops when the leader's does: this waits for that."""
         with self._wake:
-            self._alive = False
+            if not self._follower:
+                self._alive = False
             self._wake.notify_all()
         self._thread.join(timeout=timeout)
         if self._thread.is_alive():
@@ -293,21 +322,64 @@ class AsyncEngine:
     # ------------------------------------------------------------------
     # stepper thread
     # ------------------------------------------------------------------
+    def _intake(self):
+        """Park until there is work (a tensor-parallel leader at most
+        ``TP_HEARTBEAT_S``), then take the inbox and the cancellations;
+        returns (alive, inbox, cancels)."""
+        park = TP_HEARTBEAT_S if self._tp else None
+        with self._wake:
+            while (self._alive and not self._inbox
+                   and not self._cancels and not self.core.has_work()):
+                # park: an idle engine costs 0 CPU
+                if not self._wake.wait(park) and self._tp:
+                    break                       # heartbeat record
+            inbox, self._inbox = self._inbox, []
+            cancels, self._cancels = self._cancels, []
+            self._g_inbox.set(len(inbox))
+            return self._alive, inbox, cancels
+
+    def _follow(self):
+        """A follower's intake: the leader's next step record, applied
+        to this rank's handles; returns (alive, inbox, cancels, now,
+        whether the record took in and cancelled nothing)."""
+        rec = self.core.shared(None)
+        with self._update:
+            for uid in rec["failed"]:
+                handle = self._handles.pop(uid, None)
+                if handle is not None and handle._seq is not None:
+                    self.core.cancel(handle._seq, trace_event=None)
+            inbox = []
+            for uid, request in rec["submit"]:
+                handle = RequestHandle(uid=uid, request=request)
+                self._handles[uid] = handle
+                inbox.append(handle)
+            cancels = [self._handles[uid] for uid in rec["cancel"]
+                       if uid in self._handles]
+        return (rec["alive"], inbox, cancels, rec["now"],
+                not rec["submit"] and not rec["cancel"])
+
     def _step_loop(self) -> None:
         core = self.core
         try:
             if core.runner.device.type == "cuda":
                 torch.cuda.set_device(core.runner.device)
             while True:
-                with self._wake:
-                    while (self._alive and not self._inbox
-                           and not self._cancels and not core.has_work()):
-                        self._wake.wait()       # park: idle engine = 0 CPU
-                    if not self._alive:
-                        return
-                    inbox, self._inbox = self._inbox, []
-                    cancels, self._cancels = self._cancels, []
-                    self._g_inbox.set(len(inbox))
+                if self._follower:
+                    alive, inbox, cancels, now, empty = self._follow()
+                else:
+                    alive, inbox, cancels = self._intake()
+                    now = core.clock.now() - self._clock0
+                    empty = not inbox and not cancels
+                    if self._tp:
+                        failed, self._tp_failed = self._tp_failed, []
+                        core.shared({
+                            "alive": alive, "now": now, "failed": failed,
+                            "submit": [(h.uid, h.request) for h in inbox],
+                            "cancel": [h.uid for h in cancels]})
+                if not alive:
+                    return
+                if self._tp and empty and not core.has_work():
+                    continue            # a heartbeat: every rank skips it
                 for handle in cancels:
                     if handle.done:     # finished/failed while queued
                         continue        # for cancel: keep that state
@@ -318,7 +390,6 @@ class AsyncEngine:
                         handle.state = RequestState.CANCELLED
                         self._handles.pop(handle.uid, None)
                         self._update.notify_all()
-                now = core.clock.now() - self._clock0
                 for handle in inbox:
                     if handle.done:             # cancelled while queued
                         continue
@@ -338,7 +409,7 @@ class AsyncEngine:
                             handle.error = e
                             self._handles.pop(handle.uid, None)
                             self._update.notify_all()
-                res = core.step(now=core.clock.now() - self._clock0)
+                res = core.step(now=now)
                 self._publish(res)
         except BaseException as e:              # noqa: BLE001 — must
             self._die(e)                        # reach the callers
@@ -412,6 +483,8 @@ class AsyncEngine:
             handle.state = RequestState.FAILED
             handle.error = exc
             self._handles.pop(handle.uid, None)
+            if self._tp:                # the followers cancel it too
+                self._tp_failed.append(handle.uid)
             self._update.notify_all()
 
     def _die(self, exc: BaseException) -> None:

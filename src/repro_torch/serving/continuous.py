@@ -17,6 +17,10 @@ runs on ``device="cuda"`` unless the caller passes ``device="cpu"``.
 For live traffic (submit/stream/cancel while the engine steps) use
 :class:`~repro_torch.serving.async_engine.AsyncEngine`, which drives the
 same core from a background stepper thread.
+
+Under a tensor-parallel mesh every rank calls ``generate`` with the same
+requests; each step's clock reading is rank 0's (``EngineCore.shared``),
+so every rank admits the same requests at the same step.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ class ContinuousServingEngine:
         clock0 = core.clock.now()
         done: List[Completion] = []
         while pending or core.has_work():
-            now = core.clock.now() - clock0
+            now = core.shared(core.clock.now() - clock0)
             while pending and pending[0][0] <= now:
                 t_arr, i = pending.pop(0)
                 core.submit(requests[i], arrival=t_arr, t0=clock0 + t_arr)

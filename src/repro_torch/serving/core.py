@@ -8,8 +8,16 @@ Quantized serving (``quant=``, ``repro_torch.quant.QuantPolicy``) sizes
 the pool's pages by the policy's ``kv_dtype`` and hands the rest to the
 runner.  Speculative decoding (``spec_decode=k``) drafts up to k tokens
 per greedy lane by prompt lookup and verifies them in one batched
-forward (``ModelRunner.verify``).  Tensor-parallel serving (``mesh=``)
-is not ported yet and raises ``NotImplementedError``.
+forward (``ModelRunner.verify``).
+
+Tensor-parallel serving (``mesh=``, a ``repro_torch.launch.mesh.Mesh``
+whose ``"model"`` axis has S ranks): every rank builds the same core and
+steps it on the same inputs, the runner running its share of the heads
+(rank ≅ NUMA node, as in the reference's mesh mode: the pool's pages
+stripe over ``n_nodes`` and split their bytes over S head slices).  What
+could differ between ranks is made to agree by construction: the
+drivers take rank 0's clock reading for each step (:meth:`shared`), and
+every rank's sampler is seeded alike.
 
 Middle of the three-layer split (runner / core / async): one
 :meth:`EngineCore.step` call is exactly one iteration of the old
@@ -42,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.tp import broadcast_object
 from ..models.transformer import Model
 from ..obs.metrics import MetricsRegistry, NullRegistry
 from ..obs.trace import NullTracer, RequestTracer
@@ -153,10 +162,8 @@ class EngineCore:
         #: quantization policy (``repro_torch.quant.QuantPolicy``): the
         #: KV page format sizes the pool here; the runner applies the rest
         self.quant = quant
-        if mesh is not None or policy is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=/policy=) is not ported yet")
         self.model = model
+        self.mesh = mesh
         self.max_len = max_len
         self.max_running = max_running
         self.page_size = page_size
@@ -172,7 +179,11 @@ class EngineCore:
         self.registry = (registry if registry is not None
                          else MetricsRegistry())
         self.tracer = tracer if tracer is not None else NullTracer()
-        n_shards = 1
+        # mesh mode: each rank stands in for one NUMA node, so page
+        # planning stripes rows across n_nodes AND splits every page's
+        # bytes across the ranks' head slices (KVPoolConfig.n_shards)
+        n_shards = (int(mesh.shape.get("model", 1))
+                    if mesh is not None else 1)
         self.pool = KVCachePool(KVPoolConfig(
             n_pages=n_pages, page_size=page_size, n_layers=cfg.n_layers,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
@@ -187,8 +198,9 @@ class EngineCore:
         self.runner = ModelRunner(
             model, params, max_running=max_running, max_len=max_len,
             page_size=page_size, n_pages=n_pages,
-            window_override=window_override, quant=quant,
-            registry=self.registry, clock=self.clock, device=device)
+            window_override=window_override, mesh=mesh, policy=policy,
+            quant=quant, registry=self.registry, clock=self.clock,
+            device=device)
         self.params = self.runner.params          # on the runner's device
         #: sampling generator on the runner's device, seeded like the
         #: reference's ``PRNGKey(seed)`` (different bits, same role)
@@ -340,6 +352,14 @@ class EngineCore:
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
+
+    def shared(self, value):
+        """Rank 0's ``value`` on every rank of the mesh (``value`` itself
+        without one): a driver passes each step's inputs through it, so
+        the ranks' host engines take the same decisions."""
+        if self.mesh is None or self.mesh.size == 1:
+            return value
+        return broadcast_object(value, self.mesh)
 
     # ------------------------------------------------------------------
     def submit(self, request: Request, *, arrival: float = 0.0,

@@ -31,12 +31,24 @@ Speculative decoding runs through :meth:`ModelRunner.verify`: one
 batched forward over each lane's last token plus its drafts
 (``Model.verify_step``).
 
-Not ported yet (``NotImplementedError``): tensor-parallel serving
-(``mesh=``).
+``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) switches on the
+**tensor-parallel mode**, the paper's §3 partition over the ranks of a
+process group (rank ≅ NUMA node): this rank runs a **local model** with
+its share of the query and kv heads (``head_dim`` pinned), holds its
+head slice of ``w_q/w_k/w_v`` (Q4_0 codes and scales alike) and of every
+page of the pool (its buffers are simply the local model's pool: (rows,
+Hkv / S, D)), and one all-reduce per layer
+(``launch.shardings.make_paged_head_merge``) gathers the heads' outputs
+before the replicated ``w_o``.  Every rank runs every call with the same
+inputs; the pool buffers keep their storage across calls, as the
+reference's donation keeps each shard's.  ``policy``
+(``launch.shardings.Policy``) is validated: only the head-sharded cache
+layout exists, and the shard count must divide both head counts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -82,9 +94,6 @@ class ModelRunner:
                  quant: Optional[Any] = None,
                  registry: Optional[Any] = None,
                  clock: Optional[Any] = None, device: Any = "cuda") -> None:
-        if mesh is not None or policy is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=/policy=) is not ported yet")
         self.device = resolve_device(device)
         self.model = model
         self.params = params_to(params, self.device)
@@ -102,6 +111,14 @@ class ModelRunner:
         self.n_pages = n_pages
         self.max_pages = -(-max_len // page_size)
         self.window_override = window_override
+        self.mesh = mesh
+        self.tp_axis = "model"
+        self.tp_shards = (int(mesh.shape.get(self.tp_axis, 1))
+                          if mesh is not None else 1)
+        #: the model every call runs: this rank's local model under TP
+        self.local_model = model
+        if mesh is not None:
+            self._init_tp(policy)
         # observability: per-call dispatch time (enqueue-to-return —
         # device completion is owned by whoever synchronises)
         self._now = clock.now if clock is not None else time.perf_counter
@@ -110,14 +127,16 @@ class ModelRunner:
         if registry is not None:
             self._h_decode = registry.histogram(
                 "runner.decode.dispatch_ms",
-                "batched decode dispatch wall per call").labels(shards="1")
+                "batched decode dispatch wall per call").labels(
+                    shards=str(self.tp_shards))
             self._h_prefill = registry.histogram(
                 "runner.prefill.dispatch_ms",
-                "prefill-chunk dispatch wall per call").labels(shards="1")
+                "prefill-chunk dispatch wall per call").labels(
+                    shards=str(self.tp_shards))
             self._h_verify = registry.histogram(
                 "runner.verify.dispatch_ms",
                 "speculative verify dispatch wall per call").labels(
-                    shards="1")
+                    shards=str(self.tp_shards))
             if self.quant.weights == "q4":
                 # every forward under Q4_0 weights routes each projection
                 # through the dequantizing matmul: count them per phase
@@ -128,10 +147,42 @@ class ModelRunner:
                 self._c_q4_decode = c.labels(phase="decode")
                 self._c_q4_prefill = c.labels(phase="prefill")
                 self._c_q4_verify = c.labels(phase="verify")
-        self.cache = model.init_cache(max_running, max_len,
-                                      page_size=page_size, n_pages=n_pages,
-                                      kv_dtype=self.quant.kv_dtype,
-                                      device=self.device)
+        self.cache = self.local_model.init_cache(
+            max_running, max_len, page_size=page_size, n_pages=n_pages,
+            kv_dtype=self.quant.kv_dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    # tensor-parallel mode
+    # ------------------------------------------------------------------
+    def _init_tp(self, policy: Optional[Any]) -> None:
+        from ..core.tp import shard_tree
+        from ..launch.shardings import (make_paged_head_merge,
+                                        serving_tp_param_specs)
+
+        cfg = self.model.cfg
+        S, axis = self.tp_shards, self.tp_axis
+        if policy is not None and not policy.shard_cache_head_dim:
+            raise ValueError(
+                "TP serving implements the head-sharded KV layout; "
+                "Policy(shard_cache_head_dim=False) has no paged variant")
+        if cfg.n_heads % S or cfg.n_kv_heads % S:
+            raise ValueError(
+                f"arch {cfg.name!r}: {cfg.n_heads} query / "
+                f"{cfg.n_kv_heads} kv heads do not shard over the "
+                f"{S}-way {axis!r} mesh axis (§3.2 partitions by "
+                "attention heads)")
+        # head counts divided, head_dim pinned (resolved_head_dim would
+        # otherwise re-derive it from d_model)
+        local_cfg = dataclasses.replace(
+            cfg, n_heads=cfg.n_heads // S, n_kv_heads=cfg.n_kv_heads // S,
+            head_dim=cfg.resolved_head_dim)
+        self.local_model = Model(local_cfg)
+        self.local_model.paged_head_merge = make_paged_head_merge(
+            cfg.n_heads, S, self.mesh, axis=axis)
+        self.local_model.qmm = self.model.qmm
+        self.params = shard_tree(
+            self.params, serving_tp_param_specs(self.params, axis=axis),
+            self.mesh)
 
     # ------------------------------------------------------------------
     def set_block_tables(self, tables: np.ndarray) -> None:
@@ -164,7 +215,7 @@ class ModelRunner:
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         t0 = self._now() if self._h_prefill is not None else 0.0
         if fresh:
-            logits, _ = self.model.prefill_paged(
+            logits, _ = self.local_model.prefill_paged(
                 self.params, batch, self.cache, slot, n,
                 page_size=self.page_size,
                 window_override=self.window_override)
@@ -172,7 +223,7 @@ class ModelRunner:
             ctx_pages = min(
                 _pad_bucket(-(-(start + n) // self.page_size), lo=1),
                 self.max_pages)
-            logits, _ = self.model.prefill_paged(
+            logits, _ = self.local_model.prefill_paged(
                 self.params, batch, self.cache, slot, n, start=start,
                 ctx_pages=ctx_pages, page_size=self.page_size,
                 window_override=self.window_override)
@@ -187,7 +238,7 @@ class ModelRunner:
         ``pos`` (max_running,) absolute fed-token positions (-1 = idle
         slot, masked + scratch-paged).  Returns (max_running, 1, V)."""
         t0 = self._now() if self._h_decode is not None else 0.0
-        logits, _ = self.model.decode_step(
+        logits, _ = self.local_model.decode_step(
             self.params, self.cache,
             torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
             torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
@@ -208,7 +259,7 @@ class ModelRunner:
         decode would emit after j accepted drafts (see
         ``Model.verify_step``)."""
         t0 = self._now() if self._h_verify is not None else 0.0
-        logits, _ = self.model.verify_step(
+        logits, _ = self.local_model.verify_step(
             self.params, self.cache,
             torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
             torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),

@@ -7,6 +7,18 @@ A batch is a dict of numpy arrays or tensors (``tokens`` and ``labels``
 the model's parameter tree: the step makes every leaf require grad,
 differentiates ``Model.loss`` with ``torch.autograd.grad`` and updates
 the leaves in place through :func:`~.optimizer.adamw_update`.
+
+Data parallelism (``make_train_step(mesh=)``, the train CLI's
+``--devices N``): every rank of the mesh's ``"data"`` axis is handed the
+same full batch, takes its 1/N of the rows, and differentiates its own
+loss; the gradients, each weighted by its rank's share of the batch's
+loss tokens, are summed by one all-reduce before AdamW.  The reduced
+loss and gradient are then the full batch's (token-weighted cross
+entropy is linear in the per-rank sums, whatever the masks; a MoE's
+router aux term becomes the token-weighted mean of the ranks'), every
+rank applies the same update, and the parameters stay equal on every
+rank.  Microbatching is refused there: a mean of microbatch means is
+not linear in the per-rank token sums.
 """
 
 from __future__ import annotations
@@ -47,8 +59,42 @@ def _device(params: Any) -> torch.device:
     return tree_leaves(params)[0].device
 
 
+def _data_shard(batch: Dict[str, torch.Tensor], mesh: Any,
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of ``batch`` on the mesh's ``"data"`` axis."""
+    n = mesh.shape["data"]
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over "
+                         f"{n} data-parallel ranks")
+    b = rows // n
+    i = mesh.axis_index("data")
+    return {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+
+
+def _reduce_data(loss: torch.Tensor, grads: list, labels: torch.Tensor,
+                 mesh: Any) -> Tuple[torch.Tensor, list]:
+    """The full batch's loss and gradients from every rank's: each rank's
+    weighted by its share of the loss tokens (labels != -100), summed in
+    f32 by one all-reduce, cast back to each gradient's dtype."""
+    from ..core.tp import all_reduce
+    n_local = (labels != -100).sum().to(torch.float32)
+    total = all_reduce(n_local.clone().reshape(1), mesh, "data")[0]
+    w = n_local / total.clamp(min=1.0)
+    flat = torch.cat([(loss.to(torch.float32) * w).reshape(1)]
+                     + [(g.to(torch.float32) * w).reshape(-1)
+                        for g in grads])
+    all_reduce(flat, mesh, "data")
+    out, at = [], 1
+    for g in grads:
+        out.append(flat[at:at + g.numel()].reshape(g.shape).to(g.dtype))
+        at += g.numel()
+    return flat[0], out
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1,
+                    mesh: Optional[Any] = None) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; the parameters and the optimizer state are
     updated in place and returned.
@@ -57,7 +103,17 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
     accumulates float32 gradients divided by the count, cast to each
     parameter's dtype before the update, as the reference does: the
     activations then scale with the microbatch.  The loss is the mean of
-    the microbatches', the other metrics the last one's."""
+    the microbatches', the other metrics the last one's.
+
+    ``mesh`` (a ``repro_torch.launch.mesh.Mesh`` with a ``"data"`` axis)
+    makes the step data parallel (module docstring): every rank passes
+    the same full batch, and the returned loss is the full batch's
+    (``ce`` and ``aux`` stay the rank's own).  It takes
+    ``microbatches=1`` only."""
+    n_data = mesh.shape.get("data", 1) if mesh is not None else 1
+    if n_data > 1 and microbatches != 1:
+        raise ValueError("data-parallel steps take microbatches=1: a mean "
+                         "of microbatch means is not the full batch's")
 
     def grads_of(leaves, params, batch):
         loss, metrics = model.loss(params, batch)
@@ -67,6 +123,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
 
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
         batch = batch_to(batch, _device(params))
+        if n_data > 1:
+            batch = _data_shard(batch, mesh)
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -89,6 +147,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
             del acc
         for p in leaves:
             p.requires_grad_(False)
+        if n_data > 1:
+            loss, grads = _reduce_data(loss, list(grads), batch["labels"],
+                                       mesh)
         params, opt_state, opt_metrics = adamw_update(
             opt_cfg, _unflatten_like(params, grads), opt_state, params)
         metrics = dict(metrics)

@@ -193,7 +193,7 @@ def test_cli_and_worker_keep_the_reference_capacity_factors(monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["--spec-decode", "2"], ["--metrics-json", "m.json"],
     ["--trace", "t.jsonl"], ["--stats-every", "1"], ["--quant", "q4"],
-    ["--kv-dtype", "int8"]])
+    ["--kv-dtype", "int8"], ["--tp-shards", "2"]])
 def test_bucket_engine_refuses_paged_flags(flags, capsys):
     with pytest.raises(SystemExit) as ei:
         port_main(["--arch", ARCH, "--device", "cpu", "--engine", "bucket"]
@@ -203,7 +203,7 @@ def test_bucket_engine_refuses_paged_flags(flags, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--http", "--interactive"], ["--replicas", "2"], ["--tp-shards", "2"],
+    ["--http", "--interactive"], ["--replicas", "2"], ["--tp-shards", "0"],
     ["--warmup-steps", "-1"], ["--spec-decode", "-1"]])
 def test_unported_and_bad_flags_are_refused(flags):
     with pytest.raises(SystemExit) as ei:
@@ -218,7 +218,8 @@ def test_unported_and_bad_flags_are_refused(flags):
     ["--engine", "bucket", "--http", "--replicas", "2"],
     ["--engine", "async", "--http", "--interactive"],
     ["--engine", "async", "--http", "--replicas", "2", "--max-respawns",
-     "-1"]])
+     "-1"],
+    ["--engine", "async", "--http", "--replicas", "2", "--tp-shards", "2"]])
 def test_http_flag_errors_match_the_reference(flags, capsys, monkeypatch):
     """The HTTP flags' argument errors are the reference CLI's, word for
     word (both exit 2 before building anything)."""

@@ -293,18 +293,22 @@ def test_moe_async_and_bucket_engines_match_the_reference(arch):
 
 
 def test_engine_refuses_missing_gpu_and_unported_features(shared_model):
-    """No GPU raises, and tensor-parallel serving (``mesh=``) is not
-    ported; speculative decoding is (``tests/test_torch_spec.py``), and
-    a negative lookahead is refused as in the reference."""
+    """No GPU raises; tensor-parallel serving (``mesh=``) is ported
+    (``tests/test_torch_tp_serving.py``) and refuses a shard count the
+    kv heads do not divide; speculative decoding is ported
+    (``tests/test_torch_spec.py``), and a negative lookahead is refused
+    as in the reference."""
     _, _, tm, tparams = shared_model
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserving.ContinuousServingEngine(tm, tparams, max_len=32)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserving.AsyncEngine(tm, tparams, max_len=32)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tserving.ContinuousServingEngine(tm, tparams, max_len=32,
-                                         mesh=object(), device="cpu")
+    from repro_torch.launch.mesh import Mesh
+    with pytest.raises(ValueError, match="head"):
+        tserving.ContinuousServingEngine(
+            tm, tparams, max_len=32, mesh=Mesh(("model",), (4,), 0, {}),
+            device="cpu")
     with pytest.raises(ValueError, match="spec_decode"):
         tserving.ContinuousServingEngine(tm, tparams, max_len=32,
                                          spec_decode=-1, device="cpu")
@@ -357,6 +361,11 @@ def test_port_imports_without_jax_or_the_reference():
         "from repro_torch.serving import HttpFrontend, Router, Supervisor\n"
         "import repro_torch.training, repro_torch.launch.train\n"
         "import repro_torch.training.loop, repro_torch.training.checkpoint\n"
+        "import repro_torch.core.tp, repro_torch.core.engine\n"
+        "import repro_torch.core.graph, repro_torch.core.threads\n"
+        "import repro_torch.core.numa, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.shardings\n"
+        "from repro_torch.core import Engine, make_tp_block, PartitionPlan\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and (m == 'repro'\n"
         "             or m.startswith(('repro.', 'jax', 'ml_dtypes'))))\n"

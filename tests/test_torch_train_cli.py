@@ -444,11 +444,20 @@ def test_train_cli_prints_the_reference_lines(tmp_path):
 
 
 def test_train_cli_refuses_devices(capsys):
+    """``--devices N`` trains data parallel (tests/test_torch_tp_serving.py);
+    a rank count that does not split the batch's rows, or ``--microbatches``
+    above 1 beside it, is refused before any rank starts."""
     from repro_torch.launch.train import main
     with pytest.raises(SystemExit) as ei:
-        main(["--arch", "qwen3-1.7b", "--device", "cpu", "--devices", "2"])
+        main(["--arch", "qwen3-1.7b", "--device", "cpu", "--devices", "3"])
     assert ei.value.code == 2
     assert "--devices" in capsys.readouterr().err
+    # and so is microbatching under data parallelism
+    with pytest.raises(SystemExit) as ei:
+        main(["--arch", "qwen3-1.7b", "--device", "cpu", "--devices", "2",
+              "--microbatches", "2"])
+    assert ei.value.code == 2
+    assert "--microbatches" in capsys.readouterr().err
 
 
 #: top-2 logit margin under which a differing greedy token is no fault
