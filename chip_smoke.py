@@ -271,6 +271,34 @@ non-zero if any phase fails, or if no CUDA device is present:
        ``python -m
        repro_torch.launch.train --devices 2`` (reduced, 3 steps), side by
        side: both exit 0 and print their TP / DP lines.
+24. the sharding hooks and the roofline (``launch.shardings``,
+    ``launch.specs``, ``launch.roofline``):
+    a. sequence-sharded flash-decoding: full-width, full-depth Qwen3-1.7B
+       in bf16 (SEQ_SEED's weights) over decode_32k's ring at B = 1
+       (32,768 slots, K/V drawn at positions 0 .. 32,766, no prefill):
+       here on one rank, kernel #2 held against its plain version at
+       that state (kv_len 32,767, 8 kv heads of G 2, D 128) and timed
+       beside SDPA and its bound, then 4 greedy steps through kernel #2
+       (28 launches a step); then on ``TP_RANKS`` gloo ranks of one card,
+       each holding 16,384 slots, the same 4 steps teacher-forced through
+       ``make_decode_attn_hook``: draws equal to this process's, logits
+       within LOGIT_TOL (argmax equal where the margin is clear), no
+       kernel launch, exactly one rank writing each new token's slot,
+       ``{"all_reduce_max": 28, "all_reduce": 56}`` a step; per rank a
+       step's wall, device busy time, the combine's share and its bytes;
+    b. in the same spawned group, Phi-3.5-MoE at 4 of its 32 layers in
+       bf16 on a (1 data x 2 model) mesh: one forward of 8 x 128 tokens
+       without a hook (the router's choices recorded), then through
+       ``make_moe_hook`` with TP inside the experts and expert-parallel,
+       routed as the one-rank run (``RoutePin``: flips within
+       ROUTE_TOL), logits within LOGIT_TOL; the collectives' bytes and
+       the expert products' device time;
+    c. ``launch.specs.build_case("qwen3-1.7b", "decode_32k")`` on a
+       one-chip mesh at 2 layers (B = 128 over a 32,768-slot ring),
+       counted on meta tensors, then run with every slot valid: the dry
+       run's argument bytes beside ``max_memory_allocated()``, the
+       roofline's bound beside the step's device time (fails if the step
+       is more than ROOFLINE_SLACK below the bound).
     Phase 11's CLI run takes the serve CLI's default ``--warmup-steps
     40``: it warm-trains on the card before it serves.
 
@@ -294,7 +322,9 @@ phase 23 and their numbers at its shard shapes; then the two train
 runs' numbers under ``training``, and phase 23's per-rank step numbers,
 TP blocks, merge all-reduce times and engine errors under
 ``tp_serving``, ``tp_blocks``, ``tp_merge_all_reduce_ms`` and
-``engine_max_abs_err``),
+``engine_max_abs_err``; phase 24's under ``seq_shard``, ``moe_hooks``
+and ``roofline_check``, and the contiguous entry its launches and
+numbers at 24a's one-rank state and its launches in 24c's step),
 and as the last line ``{"ok": true, "device":
 {...}}``.  Nothing
 here imports JAX or the reference package.
@@ -3740,6 +3770,526 @@ def tp_phase(torch, np, kernels, card, one_rank):
     return res
 
 
+
+# ----------------------------------------------------------------------
+# 24. the sequence-sharded decode hook, the MoE hooks, the roofline
+# ----------------------------------------------------------------------
+
+#: 24a: decode_32k's ring at B = 1, split over TP_RANKS ranks
+SEQ_RING = 32768
+SEQ_STEPS = 4
+SEQ_SEED = 24
+SEQ_FIRST_TOKEN = 1000
+#: 24b: Phi-3.5-MoE at 4 of its 32 layers, one forward of 8 x 128 tokens
+MOE_HOOK_LAYERS = 4
+MOE_HOOK_SHAPE = (8, 128)
+#: 24c: no step beats its roofline; a measured device time this far
+#: below the bound means the count is wrong
+ROOFLINE_SLACK = 0.05
+#: 24c: rows a block of kernel #2's plain version (f32 K/V copies of
+#: 2 x 1.07 GB a block of 16, beside the 34.4 GB cache)
+ROOF_REF_ROWS = 16
+
+
+def seq_layer_kv(torch, cfg, layer):
+    """Phase 24a's K/V of one layer's ring, (1, SEQ_RING, Hkv, D) bf16
+    each, drawn from SEQ_SEED and the layer: the same in every process."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEQ_SEED * 1000 + layer)
+    shape = (1, SEQ_RING, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return tuple(torch.randn(shape, generator=g, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+
+
+def seq_cache(torch, cfg, lo, n):
+    """Qwen3's ring cache holding slots [lo, lo + n) of the SEQ_RING-slot
+    ring and its whole position array: positions 0 .. SEQ_RING - 2
+    written (no prefill: the K/V drawn), the last slot empty."""
+    L = cfg.n_layers
+    k = torch.empty((L, 1, n, cfg.n_kv_heads, cfg.resolved_head_dim),
+                    dtype=torch.bfloat16, device="cuda")
+    v = torch.empty_like(k)
+    for i in range(L):
+        kf, vf = seq_layer_kv(torch, cfg, i)
+        k[i].copy_(kf[:, lo:lo + n])
+        v[i].copy_(vf[:, lo:lo + n])
+        del kf, vf
+    pos = ring_positions(torch, SEQ_RING - 1, SEQ_RING)
+    return {"length": torch.full((), SEQ_RING - 1, dtype=torch.int32,
+                                 device="cuda"),
+            "layers": {"self": {"k": k, "v": v,
+                                "pos": pos.expand(L, -1).contiguous()}}}
+
+
+def slot_sums(torch, k):
+    """(n,) float32: each slot's sum over layers, heads and dims of a
+    stacked (L, 1, n, H, D) ring: what changes where a slot is written."""
+    out = torch.zeros(k.shape[2], dtype=torch.float32, device=k.device)
+    for i in range(k.shape[0]):
+        out += k[i, 0].float().sum(dim=(1, 2))
+    return out
+
+
+def busy_ms(torch, run, n):
+    """Device busy ms per call of ``run()``: the sum of its kernels'
+    device time over ``n`` profiled calls (:func:`profiled`)."""
+    from torch.autograd import DeviceType
+    return sum(e.device_time_total for e in profiled(torch, run, n)
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")) / n / 1e3
+
+
+def seq_one_rank(torch, F, ref, kernels, card):
+    """Phase 24a's one-rank side: full-width Qwen3-1.7B (SEQ_SEED's
+    weights) over the whole ring, kernel #2 at its state (B = 1, kv_len
+    SEQ_RING - 1, 8 kv heads of G 2, D 128) against its plain version and
+    timed beside SDPA and its bound, then SEQ_STEPS greedy decode steps
+    through kernel #2 (28 launches a step).  Returns the fed tokens, the
+    logits, the slots' checksums the ranks check their draws against,
+    the kernel's numbers and a step's wall and device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-1.7b")
+    model = build_model(cfg)
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(SEQ_SEED)
+    params = model.init(wgen)
+    cache = seq_cache(torch, cfg, 0, SEQ_RING)
+    layers = cache["layers"]["self"]
+    n = SEQ_RING // TP_RANKS
+    sums = slot_sums(torch, layers["k"])
+    out = {"embed_sum": float(params["embed"].float().sum()),
+           "slot_sums": [sums[r * n:(r + 1) * n].cpu() for r in
+                         range(TP_RANKS)]}
+    # kernel #2 alone at this state: each layer's ring is 134 MB, past
+    # the 50 MB L2, so the timed loop takes the layers in turn
+    da = kernels["decode_attention"]
+    H, D, L = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    G = cfg.n_heads // H
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEQ_SEED + 1)
+    q = torch.randn(1, H, G, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    ks, vs, ps = layers["k"], layers["v"], layers["pos"]
+    kw = dict(q_pos=SEQ_RING - 2)
+    got = da(q, ks[0], vs[0], kv_positions=ps[0], **kw)
+    torch.cuda.synchronize()
+    err = check(torch, got, ref.decode_attention_ref(
+        q, ks[0], vs[0], kv_positions=ps[0], **kw), ...,
+        f"decode_attention at 24a's one-rank state (B=1, kv_len "
+        f"{SEQ_RING - 1}, {H}/{H * G} heads, D={D})")
+    t_k = cuda_ms(torch, lambda i: da(q, ks[i % L], vs[i % L],
+                                      kv_positions=ps[i % L], **kw), 200)
+    t_p = cuda_ms(torch, lambda i: ref.decode_attention_ref(
+        q, ks[i % L], vs[i % L], kv_positions=ps[i % L], **kw).to(q.dtype),
+        20)
+    kt = [ks[i, 0][None].transpose(1, 2).contiguous() for i in range(2)]
+    vt = [vs[i, 0][None].transpose(1, 2).contiguous() for i in range(2)]
+    mask = (ps[0] >= 0).reshape(1, 1, 1, SEQ_RING)
+    qs = q.reshape(1, H * G, 1, D)
+    t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qs, kt[i % 2], vt[i % 2], attn_mask=mask, enable_gqa=True), 200)
+    del kt, vt
+    kv_len = SEQ_RING - 1
+    b_ms, b_by = least(2 * kv_len * H * D * 2 + 2 * H * G * D * 2
+                       + SEQ_RING * 4, 4 * kv_len * H * G * D, "bfloat16")
+    out["kernel"] = {"B": 1, "kv_len": kv_len, "kv_heads": H, "G": G,
+                     "D": D, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err, "splits": da.plan[0]}
+    print(f"[seq] decode_attention at the one-rank state (B=1, kv_len "
+          f"{kv_len}, {H}/{H * G} heads, D={D}, bf16, plan {da.plan}): "
+          f"kernel {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa "
+          f"(masked, enable_gqa) {t_l * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}); max|kernel-plain| {err:.3e} — "
+          f"{card}")
+    # the greedy steps, counted from 0
+    fed, logits = [SEQ_FIRST_TOKEN], []
+    da.launches = 0
+    for s in range(SEQ_STEPS):
+        tok = torch.tensor([[fed[-1]]], device="cuda")
+        lg, _ = model.decode_step(params, cache, tok, SEQ_RING - 1 + s)
+        logits.append(lg[:, -1:].float())
+        fed.append(int(lg[0, -1].argmax()))
+    torch.cuda.synchronize()
+    out["launches"], out["layers"] = da.launches, L
+    if da.launches != SEQ_STEPS * L:
+        fail(f"[seq] one rank: {da.launches} decode_attention launches in "
+             f"{SEQ_STEPS} steps of {L} layers")
+    out["fed"], out["logits"] = fed[:SEQ_STEPS], torch.cat(logits).cpu()
+    tok = torch.tensor([[fed[-1]]], device="cuda")
+    step = lambda: model.decode_step(params, cache, tok,  # noqa: E731
+                                     SEQ_RING - 1 + SEQ_STEPS)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        step()
+        torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) / 2 * 1e3
+    by_k = kernel_times(torch, step, 2)
+    out["busy_ms"] = sum(ms for ms, _ in by_k.values())
+    out["kernel_in_step_ms"], n_in = kernel_share(by_k,
+                                                  ("decode_attn_kernel",))
+    if n_in != L:
+        fail(f"[seq] one rank: the step's trace holds {n_in} launches of "
+             f"decode_attn_kernel, not {L}")
+    print(f"[seq] one rank, Qwen3-1.7B over the whole {SEQ_RING}-slot "
+          f"ring: {out['launches']} decode_attention launches in {SEQ_STEPS} "
+          f"steps; a step {out['wall_ms']:.2f} ms wall, "
+          f"{out['busy_ms']:.2f} ms device busy, of it kernel #2 "
+          f"{out['kernel_in_step_ms']:.2f} ms (the step's trace) — {card}")
+    return out
+
+
+def seq_moe_rank(rank, world, card, fed, sums):
+    """Phases 24a and 24b on one rank of a ``world``-rank gloo group on
+    the one card.  24a: Qwen3-1.7B at SEQ_SEED's weights over this
+    rank's SEQ_RING / world slots of phase 24a's ring, the decode hook
+    installed, teacher-forced with the one-rank run's ``fed`` tokens.
+    24b: Phi-3.5-MoE at MOE_HOOK_LAYERS layers, one forward without a
+    hook (the router's choices recorded), then through the MoE hook in
+    each mode, routed as the one-rank run (:class:`RoutePin`).  Returns
+    host values, with ``marks``."""
+    marks = [("start", time.time())]
+    import dataclasses
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.core import tp
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    kernels = port_kernels()
+    out = {"marks": marks}
+    # -- 24a --------------------------------------------------------------
+    combine = {"s": 0.0, "on": False}
+    plain_combine = attn_mod.combine_partials
+
+    def timed_combine(*a, **kw):              # installed before the hook
+        if not combine["on"]:                 # binds it
+            return plain_combine(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plain_combine(*a, **kw)
+        torch.cuda.synchronize()
+        combine["s"] += time.perf_counter() - t0
+        return res
+
+    attn_mod.combine_partials = timed_combine
+    cfg = get_config("qwen3-1.7b")
+    model = build_model(cfg)
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(SEQ_SEED)
+    params = model.init(wgen)
+    n = SEQ_RING // world
+    idx = mesh.axis_index("model")
+    cache = seq_cache(torch, cfg, idx * n, n)
+    k = cache["layers"]["self"]["k"]
+    before = slot_sums(torch, k)
+    out["draws_equal"] = (
+        float(params["embed"].float().sum()) == sums["embed_sum"]
+        and torch.equal(before.cpu(), sums["slot_sums"][idx]))
+    marks.append(("24a: weights and ring drawn", time.time()))
+    hook = sh.make_decode_attn_hook(cfg, mesh, sh.Policy(), batch_size=1,
+                                    cache_len=SEQ_RING)
+    model.decode_attn_hook = hook
+    out["seq_axes"] = hook.seq_axes
+    da = kernels["decode_attention"]
+    da.launches = 0
+    logits = []
+    for s, t in enumerate(fed):
+        tok = torch.tensor([[t]], device="cuda")
+        res = {}
+        counts = tp.collective_ops_in(lambda: res.setdefault(
+            "l", model.decode_step(params, cache, tok,
+                                   SEQ_RING - 1 + s)[0]))
+        if s == 0:
+            out["collectives"] = counts
+        logits.append(res["l"][:, -1:].float().cpu())
+    torch.cuda.synchronize()
+    out["logits"] = torch.cat(logits)
+    out["kernel_launches"] = da.launches
+    out["writes"] = hook.writes
+    changed = torch.nonzero(slot_sums(torch, k) != before)[:, 0]
+    out["written_slots"] = sorted((changed + idx * n).tolist())
+    marks.append(("24a: steps through the hook", time.time()))
+    tok = torch.tensor([[fed[-1]]], device="cuda")
+    step = lambda: model.decode_step(params, cache, tok,  # noqa: E731
+                                     SEQ_RING - 1 + SEQ_STEPS)
+    step()
+    torch.cuda.synchronize()
+    combine["on"], combine["s"] = True, 0.0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        step()
+        torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t0) / 2 * 1e3
+    out["combine_ms"] = combine["s"] / 2 * 1e3
+    combine["on"] = False
+    # one profiled step: a step of the plain blockwise attention is ~14k
+    # launches, and the trace's processing grows with them
+    out["busy_ms"] = busy_ms(torch, step, 1)
+    out["bytes"] = tp.collective_bytes_in(step)
+    attn_mod.combine_partials = plain_combine
+    marks.append(("24a: step timed", time.time()))
+    del params, cache, k, before, model, hook
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 24b --------------------------------------------------------------
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"),
+                              n_layers=MOE_HOOK_LAYERS)
+    model = build_model(cfg)
+    wgen.manual_seed(SEQ_SEED + 2)
+    params = model.init(wgen)
+    tgen = torch.Generator(device="cuda")
+    tgen.manual_seed(SEQ_SEED + 3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, MOE_HOOK_SHAPE,
+                                     generator=tgen, device="cuda")}
+    marks.append(("24b: weights drawn", time.time()))
+    bmm = ("aten::bmm",)
+    run = lambda: model.forward(params, batch)[0]  # noqa: E731
+    with RoutePin(moe_mod) as pin:
+        want = run()
+        torch.cuda.synchronize()
+        out["moe"] = {"one_rank_bmm_ms": sum(op_device_ms(
+            torch, run, 1, bmm).values())}
+        pin.calls = pin.calls[:MOE_HOOK_LAYERS]
+        for ep in (False, True):
+            label = "ep" if ep else "tp"
+            pol = sh.Policy(expert_parallel=ep)
+            moe_p = params["layers"]["moe"]
+            local = {name: tp.shard_leaf(moe_p[name],
+                                         tp.Spec((None,) + s_.dims), mesh)
+                     for name, s_ in sh.moe_hook_specs(cfg, mesh,
+                                                       pol).items()}
+            p_loc = dict(params, layers=dict(params["layers"], moe=local))
+            model.moe_hook = sh.make_moe_hook(cfg, mesh, pol,
+                                              batch_size=MOE_HOOK_SHAPE[0])
+
+            def hooked():                 # routed as the one-rank run
+                pin.replay()
+                return model.forward(p_loc, batch)[0]
+
+            pin.flips, pin.max_gap = 0, 0.0
+            res = {}
+            moved = tp.collective_bytes_in(lambda: res.setdefault(
+                "l", hooked()))
+            torch.cuda.synchronize()
+            flips, gap = pin.flips, pin.max_gap
+            if flips and not gap < ROUTE_TOL:
+                fail(f"[moe-hook] {label}: a routing decision differs from "
+                     f"the one-rank run's with a clear margin {gap:.4f}")
+            V = want.shape[-1]
+            logit_parity(torch, res["l"].reshape(-1, 1, V),
+                         want.reshape(-1, 1, V), LOGIT_TOL,
+                         f"24b rank {rank} MoE hook ({label}) vs one rank")
+            d = (res["l"].float() - want.float()).abs().max().item()
+            counts = tp.collective_ops_in(hooked)
+            bmm_ms = sum(op_device_ms(torch, hooked, 1, bmm).values())
+            out["moe"][label] = {
+                "max_abs_d": d, "flips": flips, "max_gap": gap,
+                "bytes": moved, "collectives": counts, "bmm_ms": bmm_ms,
+                "w_up": tuple(local["w_up"].shape)}
+            model.moe_hook = None
+            del local, p_loc, res
+            torch.cuda.empty_cache()
+            marks.append((f"24b: {label} forward", time.time()))
+    return out
+
+
+def seq_moe_phase(torch, F, ref, kernels, card):
+    """Phases 24a and 24b: the one-rank side of 24a here, then both
+    2-rank parts in one spawned gloo group (:func:`seq_moe_rank`), held
+    against it.  Returns the numbers the kernels line and PERF.md take."""
+    from repro_torch.launch.mesh import run_ranks
+    one = seq_one_rank(torch, F, ref, kernels, card)
+    sums = {"embed_sum": one["embed_sum"], "slot_sums": one["slot_sums"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    t_spawn = time.time()
+    ranks = run_ranks(seq_moe_rank, TP_RANKS, (card, one["fed"], sums),
+                      timeout=600, threads=None)
+    print(f"[seq] {TP_RANKS} ranks on one card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    n = SEQ_RING // TP_RANKS
+    want_slots = sorted((SEQ_RING - 1 + s) % SEQ_RING
+                        for s in range(SEQ_STEPS))
+    L = one["layers"]
+    written = []
+    for r, res in enumerate(ranks):
+        marks = res.pop("marks")
+        print(f"[seq] rank {r}: " + ", ".join(
+            f"{w} {t - (marks[i - 1][1] if i else t_spawn):.1f} s"
+            for i, (w, t) in enumerate(marks)))
+        if not res["draws_equal"]:
+            fail(f"[seq] rank {r}: its weights or ring differ from the "
+                 "one-rank draw of the same seed")
+        if res["seq_axes"] != ("model",):
+            fail(f"[seq] rank {r}: sequence axes {res['seq_axes']}")
+        logit_parity(torch, res["logits"], one["logits"], LOGIT_TOL,
+                     f"24a rank {r} seq-sharded decode vs one rank "
+                     f"({SEQ_STEPS} teacher-forced steps)")
+        if res["kernel_launches"]:
+            fail(f"[seq] rank {r}: the hook's steps launched "
+                 f"decode_attention {res['kernel_launches']} times")
+        if res["collectives"] != {"all_reduce_max": L, "all_reduce": 2 * L}:
+            fail(f"[seq] rank {r}: a step's collectives "
+                 f"{res['collectives']}")
+        own = [s for s in want_slots if r * n <= s < (r + 1) * n]
+        if res["written_slots"] != own or res["writes"] != len(own) * L:
+            fail(f"[seq] rank {r}: wrote slots {res['written_slots']} "
+                 f"({res['writes']} writes); it owns {own}")
+        written += own
+        print(f"[seq] rank {r}: {n} of {SEQ_RING} slots; wrote slots {own} "
+              f"({res['writes']} layer writes); a step {res['wall_ms']:.2f} "
+              f"ms wall, {res['busy_ms']:.2f} ms device busy, the combine "
+              f"{res['combine_ms']:.2f} ms ("
+              f"{100 * res['combine_ms'] / res['wall_ms']:.1f} % of the "
+              f"wall); collectives a step {res['collectives']}, bytes "
+              f"{res['bytes']} — {card}")
+        for label in ("tp", "ep"):
+            m = res["moe"][label]
+            print(f"[moe-hook] rank {r} {label}: w_up block {m['w_up']}; "
+                  f"logits max|d| {m['max_abs_d']:.4f} against one rank "
+                  f"(tol {LOGIT_TOL}); {m['flips']} routings flipped "
+                  f"(largest gap {m['max_gap']:.4f}, tol {ROUTE_TOL}); "
+                  f"collectives {m['collectives']}, bytes {m['bytes']}; "
+                  f"expert products {m['bmm_ms']:.2f} ms device (one "
+                  f"rank: {res['moe']['one_rank_bmm_ms']:.2f} ms) — {card}")
+    if sorted(written) != want_slots:
+        fail(f"[seq] the ranks wrote slots {sorted(written)}, not "
+             f"{want_slots}")
+    return {"one_rank": {k_: v for k_, v in one.items() if k_ not in (
+                "logits", "slot_sums", "embed_sum", "layers")},
+            "ranks": [{k_: res[k_] for k_ in (
+                "wall_ms", "busy_ms", "combine_ms", "collectives", "bytes",
+                "writes", "written_slots")} for res in ranks],
+            "moe_hooks": [res["moe"] for res in ranks]}
+
+
+def roofline_phase(torch, ref, kernels, card):
+    """Phase 24c: ``launch.specs.build_case("qwen3-1.7b", "decode_32k")``
+    on a one-chip mesh at 2 layers (B = 128 over a 32,768-slot ring),
+    counted on meta tensors (``launch.roofline.analyse``), then run for
+    real with every ring slot valid: kernel #2 at this state against its
+    plain version and timed beside its bound, the dry run's per-device
+    argument bytes beside ``max_memory_allocated()``, the roofline's
+    bound beside the step's measured device time; fails if the kernel
+    disagrees or the step beats the bound by more than ROOFLINE_SLACK."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.roofline import analyse
+    from repro_torch.launch.specs import build_case
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2)
+    case = build_case("qwen3-1.7b", "decode_32k",
+                      AbstractMesh((1, 1), ("data", "model")),
+                      cfg_override=cfg)
+    rep = analyse(case)
+    B, M, pos = case.batch, case.cache_len, case.args[3]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEQ_SEED + 4)
+    params = case.model.init(gen)
+    cache = case.model.init_cache(B, M, cache_len=M, device="cuda")
+    layers = cache["layers"]["self"]
+    layers["k"].normal_(generator=gen)
+    layers["v"].normal_(generator=gen)
+    layers["pos"].copy_(torch.arange(M, device="cuda").expand(
+        cfg.n_layers, -1))                     # every slot valid
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                           device="cuda")
+    da = kernels["decode_attention"]
+
+    def step():
+        return case.step_fn(params, cache, tokens, pos)
+
+    da.launches = 0
+    logits = step()[0]
+    torch.cuda.synchronize()
+    if da.launches != cfg.n_layers:
+        fail(f"[roofline] {da.launches} decode_attention launches in a "
+             f"step of {cfg.n_layers} layers")
+    if not (tuple(logits.shape) == (B, 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())):
+        fail("[roofline] the step's logits are not finite or not "
+             f"(B, 1, V): {tuple(logits.shape)}")
+    launches = da.launches
+    peak = torch.cuda.max_memory_allocated()
+    # kernel #2 alone at this state (B = 128 over the whole ring, every
+    # slot valid: a split plan no other phase reaches), held against its
+    # plain version, whose f32 copies of K/V are made ROOF_REF_ROWS rows
+    # at a time beside the cache
+    H, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // H
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEQ_SEED + 5)
+    q = torch.randn(B, H, G, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    ks, vs, ps = layers["k"], layers["v"], layers["pos"]
+    got = da(q, ks[0], vs[0], kv_positions=ps[0], q_pos=pos)
+    torch.cuda.synchronize()
+    plan = da.plan
+    err = 0.0
+    for b0 in range(0, B, ROOF_REF_ROWS):
+        rows = slice(b0, b0 + ROOF_REF_ROWS)
+        err = max(err, check(torch, got[rows], ref.decode_attention_ref(
+            q[rows], ks[0, rows], vs[0, rows], kv_positions=ps[0],
+            q_pos=pos), ..., f"decode_attention at 24c's state (B={B}, "
+            f"kv_len {M}, {H}/{H * G} heads, D={D}, rows {b0}..)"))
+    t_k = cuda_ms(torch, lambda i: da(q, ks[i % 2], vs[i % 2],
+                                      kv_positions=ps[i % 2], q_pos=pos),
+                  10, warmup=1)
+    k_ms, k_by = least(2 * B * M * H * D * 2 + 2 * B * H * G * D * 2
+                       + M * 4, 4 * B * M * H * G * D, "bfloat16")
+    print(f"[roofline] decode_attention at this state (B={B}, kv_len {M}, "
+          f"{H}/{H * G} heads, D={D}, bf16, plan {plan}): max|kernel-plain| "
+          f"{err:.3e}, {t_k:.3f} ms, bound {k_ms:.3f} ms ({k_by}) — {card}")
+    del got, q
+    by_k = kernel_times(torch, step, 3)
+    busy = sum(ms for ms, _ in by_k.values())
+    k_in_step, n_in = kernel_share(by_k, ("decode_attn_kernel",))
+    if n_in != cfg.n_layers:
+        fail(f"[roofline] the step's trace holds {n_in} launches of "
+             f"decode_attn_kernel, not {cfg.n_layers}")
+    t_dev = cuda_ms(torch, lambda i: step(), 5, warmup=1)
+    bound = rep.bound_s * 1e3
+    print(f"[roofline] {case.arch} x {case.shape_name} at {cfg.n_layers} "
+          f"layers on one chip (B={B}, ring {M}, {case.note}): dry run "
+          f"{rep.bytes_per_device / 1e9:.3f} GB of arguments a device "
+          f"(+{(rep.mem_bytes - rep.bytes_per_device) / 1e9:.3f} GB of "
+          f"outputs), max_memory_allocated {peak / 1e9:.3f} GB; "
+          f"{rep.flops / 1e9:.2f} GFLOP; bound {bound:.3f} ms "
+          f"({rep.dominant}: compute {rep.t_compute * 1e3:.3f} ms, memory "
+          f"{rep.t_memory * 1e3:.3f} ms); measured {busy:.3f} ms device "
+          f"busy ({k_in_step:.3f} ms of it kernel #2), {t_dev:.3f} ms "
+          f"device time (events) a step: "
+          f"{100 * bound / busy:.1f} % of the roofline — {card}")
+    if min(busy, t_dev) < bound * (1 - ROOFLINE_SLACK):
+        fail(f"[roofline] a step took {min(busy, t_dev):.3f} ms, below its "
+             f"bound {bound:.3f} ms by more than {ROOFLINE_SLACK:.0%}: "
+             "the count is wrong")
+    out = {"arg_gb": rep.bytes_per_device / 1e9, "out_gb": (
+        rep.mem_bytes - rep.bytes_per_device) / 1e9, "peak_gb": peak / 1e9,
+        "gflop": rep.flops / 1e9, "bound_ms": bound,
+        "bound_by": rep.dominant, "busy_ms": busy, "device_ms": t_dev,
+        "launches": launches, "kernel_in_step_ms": k_in_step,
+        "kernel": {"B": B, "kv_len": M, "kv_heads": H, "G": G, "D": D,
+                   "ms": t_k, "bound_ms": k_ms, "bound_by": k_by,
+                   "max_abs_err": err, "splits": plan[0]}}
+    del params, cache, layers, logits, ks, vs, ps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch under {ROOT}: run chip_smoke.py from the "
@@ -4276,6 +4826,16 @@ def main() -> int:
     max_err = max(max_err, tpr["bf16"]["kernel"]["max_abs_err"])
     err_i8 = max(err_i8, tpr["q4 + int8"]["kernel"]["max_abs_err"])
     err_q4 = max([err_q4] + [t[5] for t in tpr["q4_tp"].values()])
+
+    # -- 24. sequence-sharded decode, the MoE hooks, the roofline --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp(t_start, "phase 24a-b, the decode and MoE hooks on 2 ranks")
+    seq = seq_moe_phase(torch, F, ref, kernels, card)
+    err_da = max(err_da, seq["one_rank"]["kernel"]["max_abs_err"])
+    stamp(t_start, "phase 24c, the roofline against the card")
+    roof = roofline_phase(torch, ref, kernels, card)
+    err_da = max(err_da, roof["kernel"]["max_abs_err"])
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     paged_src = "src/repro_torch/csrc/paged_decode_attention.cu"
     print(json.dumps({"kernels": [{
@@ -4384,6 +4944,10 @@ def main() -> int:
         "launches_llama_vision_bucket": xattn["llama-3.2-vision-11b"][
             "launches"],
         "launches_whisper_bucket": xattn["whisper-medium"]["launches"],
+        "launches_seq_one_rank": seq["one_rank"]["launches"],
+        "seq_one_rank_state": seq["one_rank"]["kernel"],
+        "launches_roofline_step": roof["launches"],
+        "roofline_state": roof["kernel"],
         "cross_by_shape": [{"B": B_, "kv_len": M_, "kv_heads": H_, "G": G_,
                             "D": D_, "ms": t[0], "plain_ms": t[1],
                             "library_ms": t[2], "bound_ms": t[3],
@@ -4442,6 +5006,11 @@ def main() -> int:
         "tp_blocks": tpr["blocks"],
         "tp_merge_all_reduce_ms": tpr["all_reduce_ms"],
         "engine_max_abs_err": tpr["engine"],
+        "seq_shard": {"one_rank_step": {
+            k_: seq["one_rank"][k_] for k_ in ("wall_ms", "busy_ms")},
+            "ranks": seq["ranks"]},
+        "moe_hooks": seq["moe_hooks"],
+        "roofline_check": roof,
         "profile_retraces": kernel_times.retraces}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -53,12 +53,23 @@ from ..models.weights import tree_map_with_path
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
-    """Which dims of a leaf are split over which mesh axis: ``dims[i]``
-    names the axis dim ``i`` is split over (None: whole), and dims past
-    the tuple are whole, so ``Spec()`` is a replicated leaf.  The port's
-    form of a JAX ``PartitionSpec`` (``tuple(P(...)) == Spec(...).dims``)."""
+    """Which dims of a leaf are split over which mesh axes: ``dims[i]``
+    names the axis dim ``i`` is split over (None: whole; a tuple of
+    names: split over their product, row-major), and dims past the tuple
+    are whole, so ``Spec()`` is a replicated leaf.  The port's form of a
+    JAX ``PartitionSpec`` (``tuple(P(...)) == Spec(...).dims``)."""
 
-    dims: Tuple[Optional[str], ...] = ()
+    dims: Tuple[Any, ...] = ()
+
+
+def axis_size(mesh: Any, axis: Any) -> int:
+    """The number of ranks along ``axis`` (None: 1; a tuple of names:
+    the product of their sizes)."""
+    if axis is None:
+        return 1
+    if isinstance(axis, str):
+        return mesh.shape.get(axis, 1)
+    return math.prod(mesh.shape.get(a, 1) for a in axis)
 
 
 def shard_leaf(x: torch.Tensor, spec: Spec, mesh: Any) -> torch.Tensor:
@@ -66,7 +77,7 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh: Any) -> torch.Tensor:
     where a dim is split; ``x`` itself where nothing is)."""
     out = x
     for dim, axis in enumerate(spec.dims):
-        n = mesh.shape.get(axis, 1) if axis is not None else 1
+        n = axis_size(mesh, axis)
         if n == 1:
             continue
         if out.shape[dim] % n:
@@ -127,23 +138,45 @@ class PartitionPlan:
 # collectives: the only inter-rank traffic of the port's TP code
 # ----------------------------------------------------------------------
 
-#: the counter :func:`collective_ops_in` installs (per thread/context)
+#: the counters :func:`collective_ops_in` and :func:`collective_bytes_in`
+#: install (per thread/context)
 _COUNTS: contextvars.ContextVar[Optional[Dict[str, int]]] = \
     contextvars.ContextVar("tp_collectives", default=None)
+_BYTES: contextvars.ContextVar[Optional[Dict[str, int]]] = \
+    contextvars.ContextVar("tp_collective_bytes", default=None)
 
 
-def _count(name: str) -> None:
+def _count(name: str, moved: int = 0) -> None:
+    """Count one call of collective ``name``, and the ``moved`` bytes of
+    its output on this rank (0 on an axis of size 1: nothing moves)."""
     counts = _COUNTS.get()
     if counts is not None:
         counts[name] = counts.get(name, 0) + 1
+    tally = _BYTES.get()
+    if tally is not None and moved:
+        tally[name] = tally.get(name, 0) + moved
 
 
-def all_reduce(x: torch.Tensor, mesh: Any, axis: str = "model",
-               ) -> torch.Tensor:
-    """Sum ``x`` over the ranks of ``axis``, in place; returns ``x``."""
-    _count("all_reduce")
-    if mesh.shape.get(axis, 1) > 1:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+_REDUCE_OPS = {"sum": ("all_reduce", dist.ReduceOp.SUM),
+               "max": ("all_reduce_max", dist.ReduceOp.MAX)}
+
+
+def all_reduce(x: torch.Tensor, mesh: Any, axis: Any = "model", *,
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``x`` over the ranks of ``axis`` (a name or a tuple of
+    names), in place; returns ``x``.  ``op``: "sum" (counted as
+    ``all_reduce``) or "max" (counted as ``all_reduce_max``)."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"op={op!r}: choose 'sum' or 'max'")
+    name, red = _REDUCE_OPS[op]
+    n = axis_size(mesh, axis)
+    _count(name, _nbytes(x) if n > 1 else 0)
+    if n > 1:
+        dist.all_reduce(x, op=red, group=mesh.group(axis))
     return x
 
 
@@ -151,8 +184,8 @@ def all_gather(x: torch.Tensor, mesh: Any, axis: str = "model", *,
                dim: int = 0) -> torch.Tensor:
     """The ranks' ``x`` of ``axis`` concatenated along ``dim``, in rank
     order (JAX's ``all_gather(..., tiled=True)``)."""
-    _count("all_gather")
     n = mesh.shape.get(axis, 1)
+    _count("all_gather", n * _nbytes(x) if n > 1 else 0)
     if n == 1:
         return x
     parts = [torch.empty_like(x) for _ in range(n)]
@@ -163,7 +196,7 @@ def all_gather(x: torch.Tensor, mesh: Any, axis: str = "model", *,
 def broadcast(x: torch.Tensor, mesh: Any, *, src: int = 0) -> torch.Tensor:
     """Rank ``src``'s ``x`` on every rank of the mesh, in place (as raw
     bytes, so every dtype travels on every backend); returns ``x``."""
-    _count("broadcast")
+    _count("broadcast", _nbytes(x) if mesh.size > 1 else 0)
     if mesh.size > 1:
         if not x.is_contiguous():
             raise ValueError("broadcast needs a contiguous tensor")
@@ -195,6 +228,24 @@ def collective_ops_in(fn: Callable[..., Any], *args: Any,
     finally:
         _COUNTS.reset(token)
     return counts
+
+
+def collective_bytes_in(fn: Callable[..., Any], *args: Any,
+                        **kwargs: Any) -> Dict[str, int]:
+    """Run ``fn(*args, **kwargs)`` and sum, by collective, the bytes of
+    each call's output on this rank (an all-reduce's and a broadcast's
+    tensor, an all-gather's concatenation; ``broadcast_object`` is not
+    counted), over axes of size above 1: the convention of the
+    reference's HLO walk (``repro.launch.hlo_cost``), which
+    ``launch.step_cost``'s rules follow.  Every rank of the group must
+    call it together."""
+    tally: Dict[str, int] = {}
+    token = _BYTES.set(tally)
+    try:
+        fn(*args, **kwargs)
+    finally:
+        _BYTES.reset(token)
+    return tally
 
 
 # ----------------------------------------------------------------------

@@ -134,7 +134,11 @@ class _LinearScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, u, h0, impl):
-        if impl == "ref" or not a.is_cuda:
+        if a.is_meta:
+            # the dry run (``launch.step_cost``): shapes only; the plain
+            # loop would take T meta steps to compute nothing
+            h = torch.empty_like(u)
+        elif impl == "ref" or not a.is_cuda:
             h = _ref.rglru_scan_ref(a, u, h0)
         else:
             h = _rglru_kernel(a, u, h0)
@@ -146,7 +150,9 @@ class _LinearScan(torch.autograd.Function):
     def backward(ctx, g):
         a, h, h0 = ctx.saved_tensors
         g = g.contiguous()
-        if ctx.impl == "ref" or not g.is_cuda:
+        if g.is_meta:
+            c = torch.empty_like(g)
+        elif ctx.impl == "ref" or not g.is_cuda:
             c = _ref.rglru_scan_reverse_ref(a, g)
         else:
             c = _rglru_reverse_kernel(a, g)

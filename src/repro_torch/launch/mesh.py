@@ -10,7 +10,21 @@ take their group from the mesh, so the backend is whatever the caller's
 ``init_process_group`` chose: gloo on the CPU and for ranks that share
 one GPU, NCCL for a group with a GPU per rank.
 
-No hardware constants live here: the reference's are TPU numbers.
+An :class:`AbstractMesh` has axis names and sizes and no process group
+(the reference's ``jax.sharding.AbstractMesh``): the spec functions of
+``launch.shardings`` and the dry run (``launch.specs``, ``launch.dryrun``)
+read one, and :func:`make_production_mesh` returns the reference's two
+production layouts as abstract meshes.
+
+The hardware constants below are one NVIDIA H100 SXM's and its links'
+(the reference's are TPU v5e numbers, and none of them is kept).  A
+mesh's ranks are laid out row-major over its axes, the last axis
+innermost, and rank ``r`` sits on node ``r // GPUS_PER_NODE``.  The
+collective term of an axis uses the **slowest link the axis spans**
+(:func:`axis_link_bw`): an axis whose every line of ranks lies inside
+one node runs over NVLink, any other over InfiniBand.  So with the
+model axis innermost, a 16-way ``model`` axis crosses two nodes of 8 and
+runs at the InfiniBand rate, as does every axis outside it.
 
 Building a mesh touches no device and starts no process;
 :func:`init_group` joins a group, :func:`run_ranks` starts one whose
@@ -57,15 +71,32 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.shape.values())
 
-    def axis_index(self, axis: str) -> int:
+    def axis_index(self, axis: Any) -> int:
         """This rank's coordinate on ``axis`` (ranks are laid out
-        row-major over ``axis_names``)."""
+        row-major over ``axis_names``); for a tuple of axes, the
+        row-major index over them (JAX's ``axis_index`` of a tuple)."""
+        if not isinstance(axis, str):
+            idx = 0
+            for a in axis:
+                idx = idx * self.shape[a] + self.axis_index(a)
+            return idx
         i = self.axis_names.index(axis)
         stride = math.prod(self.shape[a] for a in self.axis_names[i + 1:])
         return (self.rank // stride) % self.shape[axis]
 
-    def group(self, axis: str) -> Any:
-        return self._groups.get(axis)
+    def group(self, axis: Any) -> Any:
+        """The process group of ``axis``; for a tuple of axes, the group
+        of the one axis of size above 1 among them, or the whole world
+        when they are every such axis of the mesh."""
+        if isinstance(axis, str):
+            return self._groups.get(axis)
+        live = [a for a in axis if self.shape.get(a, 1) > 1]
+        if len(live) <= 1:
+            return self._groups.get(live[0]) if live else None
+        if math.prod(self.shape[a] for a in live) == self.size:
+            return dist.group.WORLD
+        raise ValueError(f"no process group spans axes {tuple(axis)} of "
+                         f"{self!r}")
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -122,9 +153,77 @@ def make_host_mesh(model: int = 1, data: int = 1) -> Mesh:
     return make_mesh((data, model), ("data", "model"))
 
 
-def data_axes(mesh: Mesh) -> Tuple[str, ...]:
+def data_axes(mesh: Any) -> Tuple[str, ...]:
     """The batch-carrying axes of a mesh ('pod' included when present)."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+# ----------------------------------------------------------------------
+# abstract meshes and the hardware they stand for
+# ----------------------------------------------------------------------
+
+#: dense bf16 tensor-core peak of one H100 SXM at its 700 W limit (NVIDIA
+#: H100 data sheet)
+PEAK_FLOPS_BF16 = 989e12
+#: HBM3 bandwidth of one H100 SXM, bytes/s (the same data sheet)
+HBM_BW = 3.35e12
+#: device memory of one H100 SXM: 80 GB (the same data sheet)
+HBM_PER_CHIP = 80e9
+#: GPUs a node: one DGX H100 (8 H100 SXM joined all to all by NVSwitch)
+GPUS_PER_NODE = 8
+#: one pod: a DGX SuperPOD scalable unit, 32 DGX H100 nodes x 8 GPUs
+CHIPS_PER_POD = 256
+#: NVLink 4 inside a node: 18 links x 25 GB/s each way = 450 GB/s a GPU
+#: each way (900 GB/s both ways; DGX H100 data sheet)
+NVLINK_BW = 450e9
+#: across nodes: one ConnectX-7 NDR InfiniBand port a GPU, 400 Gb/s =
+#: 50 GB/s each way (DGX H100 data sheet)
+IB_BW = 50e9
+
+
+class AbstractMesh:
+    """Axis names and sizes, no process group and no rank: what the spec
+    functions and the dry run read (``shape``, ``axis_names``, ``size``),
+    as the reference's read a jax ``Mesh`` / ``AbstractMesh``."""
+
+    def __init__(self, shape: Tuple[int, ...],
+                 axes: Tuple[str, ...]) -> None:
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} does not name axes {axes}")
+        self.axis_names = tuple(axes)
+        self.shape: Dict[str, int] = dict(zip(axes, shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production layouts: (16, 16) ``("data", "model")``
+    (one pod of :data:`CHIPS_PER_POD`) or (2, 16, 16) ``("pod", "data",
+    "model")``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(shape, axes)
+
+
+def axis_link_bw(mesh: Any, axes: Any) -> float:
+    """Bytes/s a device moves in a collective over ``axes`` (a name or a
+    tuple of names): :data:`NVLINK_BW` when every line of ranks along
+    them lies inside one node of :data:`GPUS_PER_NODE`, else
+    :data:`IB_BW` (the slowest link spanned; module docstring)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    names = mesh.axis_names
+    sizes = [mesh.shape[a] for a in names]
+    lines: Dict[Tuple[int, ...], set] = {}
+    for r in range(math.prod(sizes)):
+        c = _coords(r, sizes)
+        key = tuple(x for a, x in zip(names, c) if a not in axes)
+        lines.setdefault(key, set()).add(r // GPUS_PER_NODE)
+    return NVLINK_BW if all(len(n) == 1 for n in lines.values()) else IB_BW
 
 
 # ----------------------------------------------------------------------

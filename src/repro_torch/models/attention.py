@@ -9,6 +9,13 @@ empty) and a ``tanh`` logit softcap ride along as masks.  Prefill and
 resumed-prefill attention of both serving paths run through here;
 decode goes to the decode kernels (``repro_torch.kernels.ops``).
 
+Sequence-sharded decode (``launch.shardings.make_decode_attn_hook``):
+each rank runs the blockwise attention over its slice of the ring and
+keeps the un-normalised state (``return_partial=True``, an
+:class:`AttnPartial`); :func:`combine_partials` merges the ranks' states
+with one LSE-weighted reduction, ArcLight's Gather applied to the
+sequence axis.
+
 This is plain tensor code, not a kernel: the reference computes it with
 jnp outside any Pallas kernel.  A hand-written prefill kernel is later
 work; nothing here calls ``scaled_dot_product_attention``.
@@ -17,13 +24,21 @@ work; nothing here calls ``scaled_dot_product_attention``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional, Union
 
 import torch
 
 #: finite "minus infinity": a fully-masked row keeps finite state and
 #: the first real score resets it through alpha = exp(NEG_INF - m) = 0
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+class AttnPartial(NamedTuple):
+    """Un-normalised blockwise attention state (for a cross-rank merge)."""
+
+    out: torch.Tensor    # (B, Sq, Hq, D) float32, = sum exp(s - m) v
+    m: torch.Tensor      # (B, Sq, Hq) running max
+    lsum: torch.Tensor   # (B, Sq, Hq) running denominator
 
 
 def _chunk_mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool,
@@ -48,7 +63,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_offset: int = 0, kv_len: Optional[int] = None,
                     kv_positions: Optional[torch.Tensor] = None,
                     chunk: int = 512, softcap: float = 0.0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    return_partial: bool = False,
+                    ) -> Union[torch.Tensor, AttnPartial]:
     """Blockwise attention.
 
     q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); Hq % Hkv == 0.  ``q_offset`` is
@@ -57,7 +74,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masked).  ``kv_positions`` (Skv,) gives every kv slot's absolute
     position (ring caches): entries < 0 are masked, and it overrides the
     ``kv_offset`` arithmetic.  Scores and the softmax state are float32;
-    the output is cast to ``q.dtype``.
+    the output is cast to ``q.dtype``.  ``return_partial=True`` returns
+    the :class:`AttnPartial` instead: ``out`` left un-normalised, ``m``
+    and ``lsum`` of shape (B, Sq, Hq), all float32.
     """
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -112,8 +131,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = out.reshape(B, Sq, Hq, D)
     lsum = lsum.reshape(B, Sq, Hq)
+    if return_partial:
+        return AttnPartial(out=out, m=m.reshape(B, Sq, Hq), lsum=lsum)
     safe_l = torch.where(lsum > 0, lsum, torch.ones_like(lsum))
     return (out / safe_l[..., None]).to(q.dtype)
+
+
+def combine_partials(p: AttnPartial, mesh: Any, axes: Any,
+                     out_dtype: Any) -> torch.Tensor:
+    """Merge the ranks' blockwise partials over ``axes`` (a mesh axis or
+    a tuple of them): the sequence-sharded flash-decoding Gather.  One
+    all-reduce MAX of ``m``, then one SUM of ``out * w`` and one of
+    ``lsum * w`` with ``w = exp(m - max)``, through ``core.tp``'s
+    wrappers (so ``collective_ops_in`` counts them)."""
+    from ..core.tp import all_reduce     # core.tp imports models: a cycle
+    m_glob = all_reduce(p.m.clone(), mesh, axes, op="max")
+    w = torch.exp(p.m - m_glob)
+    num = all_reduce(p.out * w[..., None], mesh, axes)
+    den = all_reduce(p.lsum * w, mesh, axes)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return (num / den[..., None]).to(out_dtype)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

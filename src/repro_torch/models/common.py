@@ -29,6 +29,24 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: Any, *,
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device (see
+    :func:`meta_generator`)."""
+
+    @property
+    def device(self) -> torch.device:           # type: ignore[override]
+        return torch.device("meta")
+
+
+def meta_generator() -> torch.Generator:
+    """A generator whose ``device`` is meta: the init functions draw on
+    ``gen.device``, so ``Model.init(meta_generator())`` builds the
+    parameter tree as meta tensors of the right shapes and dtypes and
+    draws nothing (a draw on the meta device touches no generator
+    state).  The dry run's stand-in for ``jax.eval_shape(model.init)``."""
+    return _MetaGenerator()
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: Any, *,
                device: Any = None) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=gen, device=device,

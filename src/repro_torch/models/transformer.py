@@ -81,6 +81,15 @@ is the reference's hook; ``ModelRunner`` sets it on a rank's local
 model (its head counts divided by the shard count), and every paged
 attention output then goes through it before ``w_o``.
 
+Sharding hooks (``repro_torch.launch.shardings``, default ``None``), at
+the reference's points: ``Model.param_constraint`` takes each layer's
+parameters before the layer uses them (the FSDP all-gather);
+``Model.moe_hook`` replaces the MoE FFN (``hook(moe_params, x) -> (y,
+aux)``, the model-axis split of the experts); ``Model.decode_attn_hook``
+replaces a ring-cache decode step's write and attention read (S == 1,
+sequence-sharded flash-decoding), which then bypasses the contiguous
+decode kernel, as the reference's hook bypasses its kernel.
+
 MoE layers (``repro_torch.models.moe``) take the reference's
 ``cfg.moe_impl`` and ``cfg.capacity_factor``; each layer's router aux
 loss is summed over the stack as in the reference under
@@ -421,7 +430,13 @@ def _ring_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     array (causal, window, empty slots masked) with the contiguous
     decode kernel on CUDA tensors (``ring['impl']="ref"``: the plain
     version), the reference's ``flash_attention(..., q_offset=pos,
-    kv_positions=cache['pos'])``."""
+    kv_positions=cache['pos'])``.  A decode step with
+    ``ring['decode_hook']`` (``Model.decode_attn_hook``) hands the write
+    and the read to the hook instead."""
+    hook = ring.get("decode_hook")
+    if hook is not None and q.shape[1] == 1:
+        return hook(q, k, v, cache["k"], cache["v"], cache["pos"], window,
+                    ring["q_pos"])
     _write_cache(cache["k"], cache["v"], cache["pos"], k, v, positions)
     if q.shape[1] > 1:
         return flash_attention(q, k, v, causal=True, window=window,
@@ -500,12 +515,16 @@ def _cross_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
 
 
 def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor, qmm=None, *,
-         with_aux: bool) -> Tuple[torch.Tensor, Any]:
+         with_aux: bool, moe_hook=None) -> Tuple[torch.Tensor, Any]:
     """The layer's FFN and its router aux loss (a 0-d float32 tensor; the
     float 0.0 for an MLP or without ``with_aux``, so nothing is launched
     for it).  The quantized-matmul hook reaches the dense MLP only:
-    expert stacks are never Q4_0, as in the reference."""
+    expert stacks are never Q4_0, as in the reference.  ``moe_hook``
+    (``Model.moe_hook``) replaces a MoE FFN and always returns its aux
+    loss, as the reference's does."""
     if "moe" in lp:
+        if moe_hook is not None:
+            return moe_hook(lp["moe"], x)
         return moe(lp["moe"], x, k=cfg.experts_per_token, act=cfg.act,
                    impl=cfg.moe_impl, capacity_factor=cfg.capacity_factor,
                    with_aux=with_aux)
@@ -519,7 +538,7 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
                    paged: Optional[Dict[str, Any]] = None,
                    ring: Optional[Dict[str, Any]] = None,
                    qmm=None, with_aux: bool = False, causal: bool = True,
-                   ) -> Tuple[torch.Tensor, Any]:
+                   moe_hook=None) -> Tuple[torch.Tensor, Any]:
     """One pre-norm block: x + mixer(norm(x)), then x + ffn(norm(x));
     returns (x, the FFN's router aux loss, as :func:`_ffn`).  The mixer
     is self-attention, cross-attention over ``memory`` ("xattn", with a
@@ -566,7 +585,7 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
         x = x + y
         qmm = None
     h2 = _apply_norm(cfg, lp["ln2"], x)
-    f, aux = _ffn(cfg, lp, h2, qmm, with_aux=with_aux)
+    f, aux = _ffn(cfg, lp, h2, qmm, with_aux=with_aux, moe_hook=moe_hook)
     return x + f, aux
 
 
@@ -611,6 +630,12 @@ class Model:
         #: (``launch.shardings.make_paged_head_merge``), set by
         #: ``ModelRunner`` on a rank's local model; None = one rank
         self.paged_head_merge = None
+        #: sharding hooks (``launch.shardings``; module docstring):
+        #: ``make_layer_constraint``, ``make_moe_hook`` and
+        #: ``make_decode_attn_hook``; None = one rank
+        self.param_constraint = None
+        self.moe_hook = None
+        self.decode_attn_hook = None
 
     # ------------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
@@ -868,10 +893,13 @@ class Model:
             aux = 0.0
             for i in idx:
                 _, lp, cache = views[i]
+                if self.param_constraint is not None:
+                    lp = self.param_constraint(lp)
                 x, a = _layer_forward(cfg, self.kinds[i], lp, x, positions,
                                       thetas[i], windows[i], cache,
                                       memory=memory, paged=paged, ring=ring,
-                                      qmm=self.qmm, with_aux=with_aux)
+                                      qmm=self.qmm, with_aux=with_aux,
+                                      moe_hook=self.moe_hook)
                 aux = aux + a
             return x, aux
 
@@ -1081,7 +1109,8 @@ class Model:
         pos = int(pos)
         x = self._embed(params, tokens)
         positions = torch.arange(pos, pos + 1, device=tokens.device)
-        ring = {"q_pos": pos, "single_step": True, "impl": impl}
+        ring = {"q_pos": pos, "single_step": True, "impl": impl,
+                "decode_hook": self.decode_attn_hook}
         x, _ = self._run_layers(params, x, positions, cache["layers"],
                                 window_override=window_override,
                                 memory=cache.get("memory"), ring=ring)

@@ -41,10 +41,14 @@ def tree_map_with_path(fn: Callable[[Tuple, Any], Any], tree: Any,
                        path: Tuple = ()) -> Any:
     """``fn(path, leaf)`` for every leaf; ``path`` is the tuple of dict
     keys and list indices from the root (``jax.tree_util``'s
-    ``tree_map_with_path``, with plain keys)."""
+    ``tree_map_with_path``, with plain keys; a named tuple's fields are
+    keyed by name, as ``AdamWState``'s ``step`` / ``m`` / ``v``)."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, path + (k,))
                 for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map_with_path(fn, v, path + (i,))
                           for i, v in enumerate(tree))

@@ -364,7 +364,9 @@ def test_port_imports_without_jax_or_the_reference():
         "import repro_torch.core.tp, repro_torch.core.engine\n"
         "import repro_torch.core.graph, repro_torch.core.threads\n"
         "import repro_torch.core.numa, repro_torch.launch.mesh\n"
-        "import repro_torch.launch.shardings\n"
+        "import repro_torch.launch.shardings, repro_torch.launch.specs\n"
+        "import repro_torch.launch.step_cost, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.dryrun, repro_torch.models.attention\n"
         "from repro_torch.core import Engine, make_tp_block, PartitionPlan\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and (m == 'repro'\n"
