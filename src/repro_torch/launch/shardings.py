@@ -307,30 +307,23 @@ def _moe_expert_parallel(mp: Dict[str, torch.Tensor], x: torch.Tensor, *,
     ``axis``, so each rank fills the whole (E, capacity, d) buffer,
     runs its experts' rows, and one all-reduce of the (E, capacity, d)
     output over ``axis`` merges the combine (§3.3's Gather)."""
-    from ..models.moe import _aux_loss, _expert_ffn, _router, moe_routing
+    from ..models.moe import (_aux_loss, _combine, _dispatch, _expert_ffn,
+                              _router)
     n = mesh.shape.get(axis, 1)
     m_idx = mesh.axis_index(axis) if n > 1 else 0
     E_local = mp["w_up"].shape[0]
     E = E_local * n
     d = x.shape[-1]
     x2d = x.reshape(-1, d)
-    T = x2d.shape[0]
     _, probs, topv, topi = _router(mp, x2d, k)
-    cap, slot, keep = moe_routing(topi, E, capacity_factor)
-    w_flat = topv.reshape(-1).to(x.dtype)
-    tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-    keep_x = keep[:, None].to(x.dtype)
-    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot, x2d[tok_idx] * keep_x)
+    cap, buf, assign = _dispatch(x2d, topv, topi, E, capacity_factor)
     buf = buf[:-1].reshape(E, cap, d)
     lo = m_idx * E_local
     mine = _expert_ffn(mp, buf[lo:lo + E_local], act)
     out = torch.zeros((E, cap, d), dtype=torch.float32, device=x.device)
     out[lo:lo + E_local] = mine
-    out = all_reduce(out, mesh, axis).to(x.dtype).reshape(E * cap, d)
-    gathered = out[torch.where(keep, slot, torch.zeros_like(slot))] * keep_x
-    y2d = torch.zeros_like(x2d).index_add_(0, tok_idx,
-                                            gathered * w_flat[:, None])
+    out = all_reduce(out, mesh, axis).to(x.dtype)
+    y2d = _combine(out, x2d, assign)
     return y2d.reshape(x.shape), _aux_loss(probs, topi, E)
 
 

@@ -20,6 +20,13 @@ descending sort, so equal probabilities go to the lower expert index, as
 The expert products are plain ``torch.bmm`` calls: in the reference they
 are ``jnp.einsum``s outside any Pallas kernel.
 
+The serving path runs in four spans (``repro_torch.obs.spans.traced``),
+ranges while a profiler records: ``moe.route`` (:func:`_router`),
+``moe.dispatch`` (:func:`_dispatch`: the routing and the scatter into
+the capacity buffer), ``moe.experts`` (:func:`_expert_ffn`) and
+``moe.combine`` (:func:`_combine`: the gather and the weighted sum back
+onto the tokens).
+
 ``with_aux=False`` returns the float 0.0 for the load-balance loss
 without computing it: the serving steps discard it (in the reference,
 ``jit`` drops the dead computation).
@@ -33,6 +40,7 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs.spans import traced
 from .common import Params, dense_init
 
 
@@ -65,6 +73,7 @@ def init_moe(gen: torch.Generator, d: int, f: int, n_experts: int, act: str,
     return p
 
 
+@traced("moe.experts")
 def _expert_ffn(params: Params, h: torch.Tensor, act: str) -> torch.Tensor:
     """h: (E, C, d) -> (E, C, d) through each expert's FFN."""
     up = torch.bmm(h, params["w_up"])
@@ -76,6 +85,7 @@ def _expert_ffn(params: Params, h: torch.Tensor, act: str) -> torch.Tensor:
     return torch.bmm(mid, params["w_down"])
 
 
+@traced("moe.route")
 def _router(params: Params, x2d: torch.Tensor, k: int,
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                        torch.Tensor]:
@@ -135,28 +145,46 @@ def moe_routing(topi: torch.Tensor, n_experts: int, capacity_factor: float,
     return capacity, slot, keep
 
 
+@traced("moe.dispatch")
+def _dispatch(x2d: torch.Tensor, topv: torch.Tensor, topi: torch.Tensor,
+              n_experts: int, capacity_factor: float):
+    """Each token's k assignments copied into the capacity buffer
+    (E * capacity + 1, d), whose last row takes the dropped ones: returns
+    (capacity, the buffer, the assignments for :func:`_combine`)."""
+    T, k = topi.shape
+    capacity, slot, keep = moe_routing(topi, n_experts, capacity_factor)
+    w_flat = topv.reshape(-1).to(x2d.dtype)
+    tok_idx = torch.arange(T, device=x2d.device).repeat_interleave(k)
+    keep_x = keep[:, None].to(x2d.dtype)
+    buf = torch.zeros((n_experts * capacity + 1, x2d.shape[1]),
+                      dtype=x2d.dtype, device=x2d.device)
+    buf.index_add_(0, slot, x2d[tok_idx] * keep_x)
+    return capacity, buf, (slot, keep, keep_x, tok_idx, w_flat)
+
+
+@traced("moe.combine")
+def _combine(h: torch.Tensor, x2d: torch.Tensor, assign) -> torch.Tensor:
+    """The experts' rows ``h`` (E, capacity, d) gathered back onto the
+    tokens (T, d), each weighted by its gate."""
+    slot, keep, keep_x, tok_idx, w_flat = assign
+    h = h.reshape(-1, h.shape[-1])
+    gathered = h[torch.where(keep, slot, torch.zeros_like(slot))] * keep_x
+    return torch.zeros_like(x2d).index_add_(0, tok_idx,
+                                            gathered * w_flat[:, None])
+
+
 def moe_scatter(params: Params, x: torch.Tensor, *, k: int, act: str,
                 capacity_factor: float = 1.25, with_aux: bool = True,
                 ) -> Tuple[torch.Tensor, Any]:
     """Capacity-buffer dispatch (the serving path)."""
     d = x.shape[-1]
     x2d = x.reshape(-1, d)
-    T = x2d.shape[0]
     n_experts = params["w_up"].shape[0]
     _, probs, topv, topi = _router(params, x2d, k)
-    capacity, slot, keep = moe_routing(topi, n_experts, capacity_factor)
-    w_flat = topv.reshape(-1).to(x.dtype)
-    tok_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-    keep_x = keep[:, None].to(x.dtype)
-
-    buf = torch.zeros((n_experts * capacity + 1, d), dtype=x.dtype,
-                      device=x.device)
-    buf.index_add_(0, slot, x2d[tok_idx] * keep_x)
+    capacity, buf, assign = _dispatch(x2d, topv, topi, n_experts,
+                                      capacity_factor)
     h = _expert_ffn(params, buf[:-1].reshape(n_experts, capacity, d), act)
-    h = h.reshape(n_experts * capacity, d)
-    gathered = h[torch.where(keep, slot, torch.zeros_like(slot))] * keep_x
-    y2d = torch.zeros_like(x2d).index_add_(0, tok_idx,
-                                            gathered * w_flat[:, None])
+    y2d = _combine(h, x2d, assign)
     return y2d.reshape(x.shape), (_aux_loss(probs, topi, n_experts)
                                   if with_aux else 0.0)
 

@@ -96,6 +96,11 @@ loss is summed over the stack as in the reference under
 ``_run_layers(with_aux=True)``; the serving entry points discard it, so
 they leave it off and launch nothing for it.
 
+Spans (``repro_torch.obs.spans.traced``): ``_embed``, ``_self_attn``
+and ``_cross_attn``, ``_ffn`` and ``_logits`` run inside the ranges
+``repro_torch.model.{embed,attn,ffn,logits}`` while a profiler records,
+on every path that reaches them.
+
 Training (``forward`` / ``loss``) runs the stack without a cache
 (``caches=None``): every layer attends over its own K/V, the RG-LRU and
 SSD layers start from a zero state and keep none, and the router aux
@@ -120,6 +125,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import gqa_decode_attention, paged_gqa_decode_attention
+from ..obs.spans import traced
 from ..quant.kv_int8 import dequantize_rows, quantize_rows
 from .attention import flash_attention
 from .common import (Params, dense_init, embed_init, layer_norm, mlp,
@@ -448,6 +454,7 @@ def _ring_attn(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         softcap=cfg.attn_logit_softcap, impl=ring["impl"])
 
 
+@traced("model.attn")
 def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
                positions: torch.Tensor, theta: float, window: int,
                cache: Optional[Dict[str, torch.Tensor]], *,
@@ -487,6 +494,7 @@ def _self_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
     return proj(out.reshape(B, S, -1), ap["w_o"], qmm)
 
 
+@traced("model.attn")
 def _cross_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
                 memory: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Tanh-gated cross-attention of ``x`` (B, S, d) over the memory
@@ -514,6 +522,7 @@ def _cross_attn(cfg: ModelConfig, ap: Params, x: torch.Tensor,
     return out
 
 
+@traced("model.ffn")
 def _ffn(cfg: ModelConfig, lp: Params, x: torch.Tensor, qmm=None, *,
          with_aux: bool, moe_hook=None) -> Tuple[torch.Tensor, Any]:
     """The layer's FFN and its router aux loss (a 0-d float32 tensor; the
@@ -554,7 +563,7 @@ def _layer_forward(cfg: ModelConfig, kind: str, lp: Params, x: torch.Tensor,
     if kind == "xattn":
         x = x + _cross_attn(cfg, lp["xattn"], h, memory, impl)
         h2 = _apply_norm(cfg, lp["ln2"], x)
-        return x + mlp(lp["mlp"], h2, cfg.act), 0.0
+        return x + _ffn(cfg, lp, h2, with_aux=False)[0], 0.0
     if kind == "ssd":
         st = None if cache is None else cache["ssd"]
         y, new = ssd_block(lp["ssd"], h, n_heads=cfg.ssm_heads,
@@ -940,6 +949,7 @@ class Model:
         return (self._encode(params, memory) if self.cfg.is_encoder_decoder
                 else memory)
 
+    @traced("model.embed")
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         # JAX clamps out-of-range gathers; torch would raise, so clamp
         ids = tokens.long().clamp(0, self.cfg.vocab_size - 1)
@@ -949,6 +959,7 @@ class Model:
         return (params["embed"] if self.cfg.tie_embeddings
                 else params["lm_head"])
 
+    @traced("model.logits")
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = _apply_norm(self.cfg, params["final_norm"], x)
         return unembed(self._head(params), x, tied=self.cfg.tie_embeddings)

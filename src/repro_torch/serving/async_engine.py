@@ -67,6 +67,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import torch
 
 from ..models.transformer import Model
+from ..obs.spans import Span
 from .core import Clock, EngineCore
 from .engine import Completion, Request
 from .scheduler import Sequence
@@ -187,6 +188,10 @@ class AsyncEngine:
             "async.inbox_depth",
             "submitted-but-not-yet-scheduled requests at the last "
             "stepper drain").labels()
+        # the stepper's own spans around the core's step (obs.spans):
+        # ranges only, which name a trace's idle gaps
+        self._span_intake = Span("async.intake")
+        self._span_publish = Span("async.publish")
         self._thread = threading.Thread(
             target=self._step_loop, name="engine-stepper", daemon=True)
         self._thread.start()
@@ -364,18 +369,21 @@ class AsyncEngine:
             if core.runner.device.type == "cuda":
                 torch.cuda.set_device(core.runner.device)
             while True:
-                if self._follower:
-                    alive, inbox, cancels, now, empty = self._follow()
-                else:
-                    alive, inbox, cancels = self._intake()
-                    now = core.clock.now() - self._clock0
-                    empty = not inbox and not cancels
-                    if self._tp:
-                        failed, self._tp_failed = self._tp_failed, []
-                        core.shared({
-                            "alive": alive, "now": now, "failed": failed,
-                            "submit": [(h.uid, h.request) for h in inbox],
-                            "cancel": [h.uid for h in cancels]})
+                with self._span_intake:         # parking included
+                    if self._follower:
+                        alive, inbox, cancels, now, empty = self._follow()
+                    else:
+                        alive, inbox, cancels = self._intake()
+                        now = core.clock.now() - self._clock0
+                        empty = not inbox and not cancels
+                        if self._tp:
+                            failed, self._tp_failed = self._tp_failed, []
+                            core.shared({
+                                "alive": alive, "now": now,
+                                "failed": failed,
+                                "submit": [(h.uid, h.request)
+                                           for h in inbox],
+                                "cancel": [h.uid for h in cancels]})
                 if not alive:
                     return
                 if self._tp and empty and not core.has_work():
@@ -410,7 +418,8 @@ class AsyncEngine:
                             self._handles.pop(handle.uid, None)
                             self._update.notify_all()
                 res = core.step(now=now)
-                self._publish(res)
+                with self._span_publish:
+                    self._publish(res)
         except BaseException as e:              # noqa: BLE001 — must
             self._die(e)                        # reach the callers
 

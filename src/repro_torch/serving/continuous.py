@@ -51,7 +51,6 @@ class ContinuousServingEngine:
             mesh=mesh, policy=policy, quant=quant,
             spec_decode=spec_decode, seed=seed, clock=clock,
             registry=registry, tracer=tracer, device=device)
-        self.decode_gaps_s: List[float] = []
         self.last_phase_s: Dict[str, float] = {}
 
     # engine internals tests/benches reach for, now owned by the core
@@ -93,7 +92,6 @@ class ContinuousServingEngine:
                 # nothing runnable: park until the next arrival
                 wait = pending[0][0] - (core.clock.now() - clock0)
                 core.clock.sleep(wait)
-        self.decode_gaps_s = core.decode_gaps_s
         # raw phase times — a zero-duration phase (prefill-only run,
         # virtual clock) passes through as 0.0; ``throughput_report``
         # now reports 0.0 tok/s for it instead of a clamp-distorted rate

@@ -39,6 +39,14 @@ Time is **injected** (:class:`Clock`): the core never calls
 :class:`VirtualClock` lets arrival-staggered tests run without a
 single real sleep (idle waits advance virtual time for free) while the
 default :class:`MonotonicClock` gives production wall-clock stamps.
+
+Spans (``repro_torch.obs.spans``): a step's phases, ``core.schedule``,
+``core.copies``, ``core.finish``, ``core.prefill`` (one chunk) and
+``core.decode`` (``core.sample`` inside it), are its outermost profiler
+ranges while a profiler records, and no range wraps the whole step.  The
+timed ones write, on the injected clock, ``serving.step.schedule_ms``,
+``serving.phase.prefill_s``, ``serving.phase.decode_s`` and
+``serving.decode.sample_ms``.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 from ..core.tp import broadcast_object
 from ..models.transformer import Model
 from ..obs.metrics import MetricsRegistry, NullRegistry
+from ..obs.spans import Span
 from ..obs.trace import NullTracer, RequestTracer
 from ..quant.policy import QuantPolicy
 from . import faults
@@ -209,9 +218,6 @@ class EngineCore:
 
         self._meta: Dict[int, Dict[str, object]] = {}  # uid -> timing stamps
         self._t_last_decode: Optional[float] = None
-        #: wall gaps between consecutive decode steps since the last
-        #: reset (bench: max gap == worst admission stall)
-        self.decode_gaps_s: List[float] = []
 
         # instruments resolved ONCE here — step() touches only bound
         # handles, never the registry (docs/observability.md budget)
@@ -229,9 +235,6 @@ class EngineCore:
             "inter-token latency: wall gap between consecutive decode "
             "steps (run-scoped)")
         self._h_itl = self._m_itl.labels()
-        self._h_chunk = reg.histogram(
-            "serving.prefill.chunk_ms",
-            "one prefill chunk end-to-end (dispatch + sample)").labels()
         self._c_steps = reg.counter(
             "serving.steps", "engine steps, idle included").labels()
         self._c_tok_prefill = reg.counter(
@@ -277,6 +280,27 @@ class EngineCore:
                 "per-lane fraction of drafted tokens accepted each "
                 "verify step",
                 buckets=tuple(i / 8 for i in range(1, 9))).labels()
+        # spans at the step's layer boundaries (obs.spans): the phase
+        # spans are the outermost program ranges of a step, and each
+        # timed one writes the one instrument that times its interval
+        now = self.clock.now
+        self._span_schedule = Span(
+            "core.schedule", now=now, ms=reg.histogram(
+                "serving.step.schedule_ms",
+                "scheduler step plus the expired and preempted handling, "
+                "per engine step").labels())
+        self._span_copies = Span("core.copies")
+        self._span_finish = Span("core.finish")
+        self._span_prefill = Span("core.prefill", now=now,
+                                  seconds=self._c_prefill_s)
+        self._span_decode = Span("core.decode", now=now,
+                                 seconds=self._c_decode_s)
+        self._span_sample = Span(
+            "core.sample", now=now, ms=reg.histogram(
+                "serving.decode.sample_ms",
+                "sampling after a decode or verify forward, the "
+                "device-to-host copy that waits for the step's device "
+                "work included").labels())
         # per-(node, shard) pool gauges, sampled after every step; a
         # page's bytes are split across every shard's head-slice pool,
         # so each shard sees the same per-node free count.  Skipped
@@ -341,10 +365,9 @@ class EngineCore:
                 "decode_s": self._m_phase_decode.value()}
 
     def reset_run_stats(self) -> None:
-        """Zero the per-run accumulators (phase counters, ITL histogram,
-        decode gaps) so back-to-back driver runs report cleanly.
-        Cumulative series (scheduler, pool, dispatch) keep counting."""
-        self.decode_gaps_s = []
+        """Zero the per-run accumulators (phase counters, ITL histogram)
+        so back-to-back driver runs report cleanly.  Cumulative series
+        (scheduler, pool, dispatch, spans) keep counting."""
         self._t_last_decode = None
         self._m_phase_prefill.reset()
         self._m_phase_decode.reset()
@@ -449,118 +472,127 @@ class EngineCore:
         if faults.ACTIVE:       # injected worker latency (chaos tests)
             faults.maybe_sleep("step.latency_ms")
         self._c_steps.inc()
-        plan = self.scheduler.step(now)
-        for seq in plan.expired:
-            # scheduler already drained slot + pages; surface the death
-            # through the normal terminal vocabulary so trace validation
-            # holds, and let the async layer fail the handle
-            tracer.event(seq.uid, "FAILED", clock.now(),
-                         error="deadline exceeded",
-                         n_tokens=len(seq.generated))
-            self._meta.pop(seq.uid, None)
-        for seq in plan.preempted:
-            tracer.event(seq.uid, "PREEMPTED", clock.now(),
-                         n_preempts=seq.n_preempts)
-            m = self._meta.get(seq.uid)
-            if m is not None:       # next admission re-opens PREFILLING
-                m.pop("state", None)
-        self._apply_copies()
+        with self._span_schedule:
+            plan = self.scheduler.step(now)
+            for seq in plan.expired:
+                # scheduler already drained slot + pages; surface the
+                # death through the normal terminal vocabulary so trace
+                # validation holds, and let the async layer fail the
+                # handle
+                tracer.event(seq.uid, "FAILED", clock.now(),
+                             error="deadline exceeded",
+                             n_tokens=len(seq.generated))
+                self._meta.pop(seq.uid, None)
+            for seq in plan.preempted:
+                tracer.event(seq.uid, "PREEMPTED", clock.now(),
+                             n_preempts=seq.n_preempts)
+                m = self._meta.get(seq.uid)
+                if m is not None:   # next admission re-opens PREFILLING
+                    m.pop("state", None)
+        with self._span_copies:
+            self._apply_copies()
         res = StepResult(expired=[s.uid for s in plan.expired],
                          n_prefills=len(plan.prefills),
                          n_decodes=len(plan.decodes))
-        for seq in plan.finished:
-            res.finished.append(self._finish(seq))
+        with self._span_finish:
+            for seq in plan.finished:
+                res.finished.append(self._finish(seq))
 
         if plan.prefills:
             self._sync_tables()
         for seq in plan.prefills:
-            t0 = clock.now()
-            prompt = seq.full_prompt
-            start = seq.n_prefilled
-            n = self.scheduler.chunk_for(seq)
-            fresh = start == 0 and n == seq.prefill_target
-            m = self._meta[seq.uid]
-            if m.get("state") != "PREFILLING":  # (re-)entered prefill
-                m["state"] = "PREFILLING"
-                tracer.event(seq.uid, "PREFILLING", t0, start=start,
-                             cached=seq.n_cached_tokens)
-            tracer.event(seq.uid, "PREFILL_CHUNK", t0, start=start, n=n)
-            logits = self.runner.prefill_chunk(
-                prompt[start:start + n], slot=seq.slot, start=start,
-                fresh=fresh)
-            seq.n_prefilled += n
-            if not seq.is_prefilling:           # final chunk: sample
-                tok = int(sample(logits, seq.request.sampling,
-                                 self._next_key())[0, 0])
-                seq.generated.append(tok)
-                res.emitted.append((seq.uid, tok))
-                # prompt KV is resident now — index it for reuse
-                self.pool.register_prefix(seq.uid, prompt)
-                m.setdefault("t_first", clock.now())
-                m["state"] = "DECODING"
-                tracer.event(seq.uid, "DECODING", clock.now())
-            dt = clock.now() - t0
-            self._c_prefill_s.inc(dt)
-            self._h_chunk.observe(dt * 1e3)
-            self._c_tok_prefill.inc(n)
-            m["prefill"] = m.get("prefill", 0.0) + dt
-            if not seq.is_prefilling and seq.is_done(self.max_len):
-                m["t1"] = clock.now()
+            with self._span_prefill:
+                self._prefill_chunk(seq, res)
 
         if plan.decodes:
-            t0 = clock.now()
-            self._sync_tables()
-            # draft by prompt lookup (greedy lanes only); a step where
-            # no lane drafts falls through to plain one-token decode so
-            # non-repetitive traffic never pays the (k+1)-wide forward
-            drafts: Dict[int, List[int]] = {}
-            if self.spec_decode:
-                for seq in plan.decodes:
-                    k_eff = lookahead_for(seq, self.spec_decode,
-                                          self.max_len)
-                    if k_eff > 0:
-                        d = propose(seq.full_prompt, k_eff)
-                        if d:
-                            drafts[seq.slot] = d
-            if drafts:
-                n_emitted = self._decode_verify(plan, drafts, res)
-            else:
-                pos = np.full((self.max_running,), -1, np.int32)
-                fed = np.zeros((self.max_running, 1), np.int32)
-                # idle lanes borrow a real lane's params so grouping
-                # never depends on dead slots
-                sps = [plan.decodes[0].request.sampling] \
-                    * self.max_running
-                for seq in plan.decodes:
-                    pos[seq.slot] = seq.next_pos - 1  # fed-token position
-                    fed[seq.slot, 0] = seq.generated[-1]
-                    sps[seq.slot] = seq.request.sampling
-                logits = self.runner.decode(fed, pos)
-                toks = sample_grouped(logits, sps, self._next_key())
-                for seq in plan.decodes:
-                    tok = int(toks[seq.slot, 0])
-                    seq.generated.append(tok)
-                    res.emitted.append((seq.uid, tok))
-                    if seq.is_done(self.max_len):
-                        self._meta[seq.uid]["t1"] = clock.now()
-                n_emitted = len(plan.decodes)
-            t1 = clock.now()
+            with self._span_decode:
+                n_emitted = self._decode(plan, res)
+                t1 = clock.now()
             if self._t_last_decode is not None:
-                gap = t1 - self._t_last_decode
-                self.decode_gaps_s.append(gap)
-                self._h_itl.observe(gap * 1e3)
+                self._h_itl.observe((t1 - self._t_last_decode) * 1e3)
             self._t_last_decode = t1
-            self._c_decode_s.inc(t1 - t0)
             self._c_tok_decode.inc(n_emitted)
             self._h_occupancy.observe(float(len(plan.decodes)))
 
-        if self._pool_gauges:
-            free = self.pool.free_pages_by_node()
-            for g, node in self._pool_gauges:
-                g.set(free.get(node, 0))
-            self._g_retained.set(self.pool.n_retained())
+        with self._span_finish:
+            if self._pool_gauges:
+                free = self.pool.free_pages_by_node()
+                for g, node in self._pool_gauges:
+                    g.set(free.get(node, 0))
+                self._g_retained.set(self.pool.n_retained())
 
         return res
+
+    def _prefill_chunk(self, seq: Sequence, res: StepResult) -> None:
+        """Run ``seq``'s next prefill chunk; sample its first token after
+        the final one."""
+        clock, tracer = self.clock, self.tracer
+        t0 = clock.now()
+        prompt = seq.full_prompt
+        start = seq.n_prefilled
+        n = self.scheduler.chunk_for(seq)
+        fresh = start == 0 and n == seq.prefill_target
+        m = self._meta[seq.uid]
+        if m.get("state") != "PREFILLING":  # (re-)entered prefill
+            m["state"] = "PREFILLING"
+            tracer.event(seq.uid, "PREFILLING", t0, start=start,
+                         cached=seq.n_cached_tokens)
+        tracer.event(seq.uid, "PREFILL_CHUNK", t0, start=start, n=n)
+        logits = self.runner.prefill_chunk(
+            prompt[start:start + n], slot=seq.slot, start=start,
+            fresh=fresh)
+        seq.n_prefilled += n
+        if not seq.is_prefilling:           # final chunk: sample
+            tok = int(sample(logits, seq.request.sampling,
+                             self._next_key())[0, 0])
+            seq.generated.append(tok)
+            res.emitted.append((seq.uid, tok))
+            # prompt KV is resident now — index it for reuse
+            self.pool.register_prefix(seq.uid, prompt)
+            m.setdefault("t_first", clock.now())
+            m["state"] = "DECODING"
+            tracer.event(seq.uid, "DECODING", clock.now())
+        self._c_tok_prefill.inc(n)
+        m["prefill"] = m.get("prefill", 0.0) + clock.now() - t0
+        if not seq.is_prefilling and seq.is_done(self.max_len):
+            m["t1"] = clock.now()
+
+    def _decode(self, plan, res: StepResult) -> int:
+        """The step's batched decode (a verify where a lane drafts) and
+        its sampling; returns the emitted-token count."""
+        self._sync_tables()
+        # draft by prompt lookup (greedy lanes only); a step where no
+        # lane drafts falls through to plain one-token decode so
+        # non-repetitive traffic never pays the (k+1)-wide forward
+        drafts: Dict[int, List[int]] = {}
+        if self.spec_decode:
+            for seq in plan.decodes:
+                k_eff = lookahead_for(seq, self.spec_decode, self.max_len)
+                if k_eff > 0:
+                    d = propose(seq.full_prompt, k_eff)
+                    if d:
+                        drafts[seq.slot] = d
+        if drafts:
+            return self._decode_verify(plan, drafts, res)
+        pos = np.full((self.max_running,), -1, np.int32)
+        fed = np.zeros((self.max_running, 1), np.int32)
+        # idle lanes borrow a real lane's params so grouping never
+        # depends on dead slots
+        sps = [plan.decodes[0].request.sampling] * self.max_running
+        for seq in plan.decodes:
+            pos[seq.slot] = seq.next_pos - 1      # fed-token position
+            fed[seq.slot, 0] = seq.generated[-1]
+            sps[seq.slot] = seq.request.sampling
+        logits = self.runner.decode(fed, pos)
+        with self._span_sample:
+            toks = sample_grouped(logits, sps, self._next_key())
+        for seq in plan.decodes:
+            tok = int(toks[seq.slot, 0])
+            seq.generated.append(tok)
+            res.emitted.append((seq.uid, tok))
+            if seq.is_done(self.max_len):
+                self._meta[seq.uid]["t1"] = self.clock.now()
+        return len(plan.decodes)
 
     def _decode_verify(self, plan, drafts: Dict[int, List[int]],
                        res: StepResult) -> int:
@@ -598,10 +630,11 @@ class EngineCore:
                 n_fed[seq.slot] = 1 + len(ds)
             sps[seq.slot] = seq.request.sampling
         logits = self.runner.verify(fed, pos, n_fed)
-        # the model's greedy choice at every fed position — same
-        # argmax (same tie-breaking) sample() runs for greedy lanes
-        targets = logits.float().argmax(dim=-1).cpu().numpy()  # (B, S)
-        toks = sample_grouped(logits[:, :1], sps, self._next_key())
+        with self._span_sample:
+            # the model's greedy choice at every fed position — same
+            # argmax (same tie-breaking) sample() runs for greedy lanes
+            targets = logits.float().argmax(dim=-1).cpu().numpy()  # (B, S)
+            toks = sample_grouped(logits[:, :1], sps, self._next_key())
         n_emitted = 0
         for seq in plan.decodes:
             ds = drafts.get(seq.slot)

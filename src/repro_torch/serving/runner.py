@@ -31,6 +31,11 @@ Speculative decoding runs through :meth:`ModelRunner.verify`: one
 batched forward over each lane's last token plus its drafts
 (``Model.verify_step``).
 
+Each call of :meth:`ModelRunner.prefill_chunk`, :meth:`~ModelRunner.decode`
+and :meth:`~ModelRunner.verify` runs in a span (``repro_torch.obs.spans``,
+``runner.prefill`` / ``runner.decode`` / ``runner.verify``) that writes
+its ``runner.*.dispatch_ms`` histogram.
+
 ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) switches on the
 **tensor-parallel mode**, the paper's §3 partition over the ranks of a
 process group (rank ≅ NUMA node): this rank runs a **local model** with
@@ -57,6 +62,7 @@ import torch
 
 from ..models.transformer import Model
 from ..models.weights import params_to
+from ..obs.spans import Span
 from ..quant.policy import QuantPolicy, make_qmm, quantize_serving_params
 
 
@@ -120,20 +126,21 @@ class ModelRunner:
         if mesh is not None:
             self._init_tp(policy)
         # observability: per-call dispatch time (enqueue-to-return —
-        # device completion is owned by whoever synchronises)
-        self._now = clock.now if clock is not None else time.perf_counter
-        self._h_decode = self._h_prefill = self._h_verify = None
+        # device completion is owned by whoever synchronises), written
+        # by each call's span (obs.spans)
+        now = clock.now if clock is not None else time.perf_counter
+        h_decode = h_prefill = h_verify = None
         self._c_q4_decode = self._c_q4_prefill = self._c_q4_verify = None
         if registry is not None:
-            self._h_decode = registry.histogram(
+            h_decode = registry.histogram(
                 "runner.decode.dispatch_ms",
                 "batched decode dispatch wall per call").labels(
                     shards=str(self.tp_shards))
-            self._h_prefill = registry.histogram(
+            h_prefill = registry.histogram(
                 "runner.prefill.dispatch_ms",
                 "prefill-chunk dispatch wall per call").labels(
                     shards=str(self.tp_shards))
-            self._h_verify = registry.histogram(
+            h_verify = registry.histogram(
                 "runner.verify.dispatch_ms",
                 "speculative verify dispatch wall per call").labels(
                     shards=str(self.tp_shards))
@@ -147,6 +154,9 @@ class ModelRunner:
                 self._c_q4_decode = c.labels(phase="decode")
                 self._c_q4_prefill = c.labels(phase="prefill")
                 self._c_q4_verify = c.labels(phase="verify")
+        self._span_decode = Span("runner.decode", ms=h_decode, now=now)
+        self._span_prefill = Span("runner.prefill", ms=h_prefill, now=now)
+        self._span_verify = Span("runner.verify", ms=h_verify, now=now)
         self.cache = self.local_model.init_cache(
             max_running, max_len, page_size=page_size, n_pages=n_pages,
             kv_dtype=self.quant.kv_dtype, device=self.device)
@@ -213,22 +223,20 @@ class ModelRunner:
         toks = np.zeros((1, padded), np.int64)
         toks[0, :n] = tokens
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        t0 = self._now() if self._h_prefill is not None else 0.0
-        if fresh:
-            logits, _ = self.local_model.prefill_paged(
-                self.params, batch, self.cache, slot, n,
-                page_size=self.page_size,
-                window_override=self.window_override)
-        else:
-            ctx_pages = min(
-                _pad_bucket(-(-(start + n) // self.page_size), lo=1),
-                self.max_pages)
-            logits, _ = self.local_model.prefill_paged(
-                self.params, batch, self.cache, slot, n, start=start,
-                ctx_pages=ctx_pages, page_size=self.page_size,
-                window_override=self.window_override)
-        if self._h_prefill is not None:
-            self._h_prefill.observe((self._now() - t0) * 1e3)
+        with self._span_prefill:
+            if fresh:
+                logits, _ = self.local_model.prefill_paged(
+                    self.params, batch, self.cache, slot, n,
+                    page_size=self.page_size,
+                    window_override=self.window_override)
+            else:
+                ctx_pages = min(
+                    _pad_bucket(-(-(start + n) // self.page_size), lo=1),
+                    self.max_pages)
+                logits, _ = self.local_model.prefill_paged(
+                    self.params, batch, self.cache, slot, n, start=start,
+                    ctx_pages=ctx_pages, page_size=self.page_size,
+                    window_override=self.window_override)
         if self._c_q4_prefill is not None:
             self._c_q4_prefill.inc()
         return logits
@@ -237,14 +245,13 @@ class ModelRunner:
         """One batched decode step: ``fed`` (max_running, 1) tokens,
         ``pos`` (max_running,) absolute fed-token positions (-1 = idle
         slot, masked + scratch-paged).  Returns (max_running, 1, V)."""
-        t0 = self._now() if self._h_decode is not None else 0.0
-        logits, _ = self.local_model.decode_step(
-            self.params, self.cache,
-            torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
-            torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
-            page_size=self.page_size, window_override=self.window_override)
-        if self._h_decode is not None:
-            self._h_decode.observe((self._now() - t0) * 1e3)
+        with self._span_decode:
+            logits, _ = self.local_model.decode_step(
+                self.params, self.cache,
+                torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
+                torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
+                page_size=self.page_size,
+                window_override=self.window_override)
         if self._c_q4_decode is not None:
             self._c_q4_decode.inc()
         return logits
@@ -258,15 +265,15 @@ class ModelRunner:
         Returns (max_running, S, V): column j's argmax is what plain
         decode would emit after j accepted drafts (see
         ``Model.verify_step``)."""
-        t0 = self._now() if self._h_verify is not None else 0.0
-        logits, _ = self.local_model.verify_step(
-            self.params, self.cache,
-            torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
-            torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
-            torch.from_numpy(np.asarray(n_fed, np.int64)).to(self.device),
-            page_size=self.page_size, window_override=self.window_override)
-        if self._h_verify is not None:
-            self._h_verify.observe((self._now() - t0) * 1e3)
+        with self._span_verify:
+            logits, _ = self.local_model.verify_step(
+                self.params, self.cache,
+                torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
+                torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
+                torch.from_numpy(np.asarray(n_fed, np.int64)).to(
+                    self.device),
+                page_size=self.page_size,
+                window_override=self.window_override)
         if self._c_q4_verify is not None:
             self._c_q4_verify.inc()
         return logits

@@ -348,6 +348,7 @@ def test_port_imports_without_jax_or_the_reference():
         "import repro_torch.models.moe, repro_torch.configs.phi35_moe\n"
         "import repro_torch.configs.grok1, repro_torch.configs.mamba2_370m\n"
         "import repro_torch.serving.async_engine, repro_torch.obs.validate\n"
+        "import repro_torch.obs.spans\n"
         "import repro_torch.configs.granite_3_8b\n"
         "import repro_torch.configs.qwen2_72b, repro_torch.configs.shapes\n"
         "import repro_torch.data.pipeline\n"
