@@ -43,7 +43,9 @@ non-zero if any phase fails, or if no CUDA device is present:
    requests, prompts of 128-512 random tokens, two sharing a 256-token
    prefix, prefill in 128-token chunks, 32 greedy tokens each; checks
    the completions and that the paged kernel ran 28 times per decode
-   step;
+   step (the engine replays its decode step from a CUDA graph, which
+   runs no kernel wrapper: a replay's launches are read from the device
+   trace, ``main_path_launches``);
 6. bf16 decode parity: from one cache state after the prefills, one
    decode step with the kernel and one with the plain version on a clone
    of the cache; logits must agree; the kernel is timed on that state,
@@ -628,12 +630,13 @@ def check_paged_graph(torch, ref, kernel, quantize_rows, gen):
         del graph, captured
 
 
-def serve(torch, eng, prompts, cfg, kernels, label, card):
+def serve(torch, eng, prompts, cfg, label, card):
     """Drive the engine's main path once: a warm-up request over the
     shared prefix (its pages stay in the retention LRU, so the two
     prefix-sharing requests hit the prefix cache), then the 8 measured
     requests with every kernel's launch count set to 0 just before and
-    read just after.  Checks completions and the prefix cache; returns
+    counted by :func:`main_path_launches`.  Checks
+    completions and the prefix cache; returns
     (launches by kernel name, decode steps, forward calls by phase from
     ``runner.quant.q4_dispatch`` or None without q4, the requests'
     tokens in request order)."""
@@ -653,11 +656,8 @@ def serve(torch, eng, prompts, cfg, kernels, label, card):
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0                     # count the main path only
-    comps = eng.generate(reqs)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    comps, launches = main_path_launches(torch, [eng],
+                                         lambda: eng.generate(reqs))
     decode_steps = int(occ.value()[1] - steps0)
     fwd = ({p_: int(disp.value(phase=p_) - d) for p_, d in zip(phases, d0)}
            if disp else None)
@@ -763,6 +763,66 @@ def port_kernels():
             "q4_gemm": qg.q4_gemm, "decode_attention": da.decode_attention,
             "rglru_scan": rs.rglru_scan,
             "rglru_scan_reverse": rs.rglru_scan_reverse}
+
+
+#: the device kernels by which each wrapper of :func:`port_kernels` is
+#: counted on a trace, one launch a call: a part of each kernel's name
+#: (the paged wrapper's split launch; its merge launch follows it)
+KERNEL_NAMES = {
+    "paged_decode_attention": ("paged_split_kernel",),
+    "q4_gemm": ("q4_mma_kernel", "q4_decode_kernel", "q4_gemm_kernel"),
+    "decode_attention": ("decode_attn_kernel",),
+    "rglru_scan": ("rglru_scan_tma_kernel", "rglru_scan_kernel")}
+
+
+def graph_launches(torch, graph, n=3):
+    """Launches by wrapper name in one replay of a runner's decode graph
+    (``serving.runner.DecodeGraph``), read by kernel name from the
+    device trace of ``n`` replays with every lane idle (idle lanes write
+    the scratch page only), through :func:`kernel_times`: whole per
+    replay, or traced again."""
+    by_kernel = kernel_times(torch, lambda: graph.replay(0, -1), n)
+    out = {}
+    for name, parts in KERNEL_NAMES.items():
+        per = sum(c for key, (_, c) in by_kernel.items()
+                  if any(part in key for part in parts))
+        if per != round(per):
+            fail(f"{name}: {per} launches a decode-graph replay: three "
+                 "traces lost events")
+        out[name] = round(per)
+    return out
+
+
+def main_path_launches(torch, engines, run):
+    """``(run(), launches by wrapper name)`` over a serving run of
+    ``engines``.  Python launches a kernel through its wrapper, which
+    counts it: prefill chunks, verify steps, eager decode steps.  A
+    decode step that a runner replays from its CUDA graph runs no
+    wrapper: its launches are the replays, counted on the engine's
+    ``runner.decode.calls{path="graph"}`` over the run, times the
+    launches of one replay, read from the device trace after the run
+    (:func:`graph_launches`).  A trace of the whole run misses records,
+    so its counts cannot be held exact: on the H100 one held 686 of 952
+    paged launches, and 5 of 20 shorter ones fell 2 to 19 launches
+    short."""
+    kernels = port_kernels()
+
+    def replays():
+        return [e.registry.get("runner.decode.calls").value(path="graph")
+                for e in engines]
+
+    before = replays()
+    for fn in kernels.values():
+        fn.launches = 0                     # count the main path only
+    out = run()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    for eng, n0, n1 in zip(engines, before, replays()):
+        if n1 > n0:
+            per = graph_launches(torch, eng.core.runner.decode_graph)
+            for name, n in per.items():
+                launches[name] += int(n1 - n0) * n
+    return out, launches
 
 
 def kernel_times(torch, run, n):
@@ -1507,14 +1567,14 @@ def spec_prompts(np, V, seed=2):
     return prompts
 
 
-def serve_async(torch, eng, prompts, kernels, V):
+def serve_async(torch, eng, prompts, V):
     """One run of ``prompts`` through ``AsyncEngine`` ``eng``: a warm-up
-    request over the shared prefix, then every kernel's launch count set
-    to 0, all requests submitted at once, the first streamed and the
-    rest waited for.  Returns (completions, streamed tokens, launches,
-    runner calls by kind, q4 forward calls by phase or None, spec
-    counters, (tokens emitted, lanes) of each verify step, peak memory,
-    TTFTs, report, free pages before and after)."""
+    request over the shared prefix, then all requests submitted at once,
+    the first streamed and the rest waited for, their launches counted
+    by :func:`main_path_launches`.  Returns (completions, streamed
+    tokens, launches, runner calls by kind, q4 forward calls by phase or
+    None, spec counters, (tokens emitted, lanes) of each verify step,
+    peak memory, TTFTs, report, free pages before and after)."""
     from repro_torch.serving import Request, SamplingParams, \
         throughput_report
     core, reg = eng.core, eng.registry
@@ -1553,18 +1613,19 @@ def serve_async(torch, eng, prompts, kernels, V):
     core._decode_verify = counted_verify
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0                     # count the main path only
     reqs = [Request(uid=i, prompt=p,
                     sampling=SamplingParams(max_new_tokens=32))
             for i, p in enumerate(prompts)]
-    handles = [eng.submit(r) for r in reqs]
-    streamed = list(eng.stream(handles[0], timeout=600))
-    comps = [eng.result(h_, timeout=600) for h_ in handles]
-    while core.has_work():
-        time.sleep(0.01)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+
+    def run():
+        handles = [eng.submit(r) for r in reqs]
+        streamed = list(eng.stream(handles[0], timeout=600))
+        comps = [eng.result(h_, timeout=600) for h_ in handles]
+        while core.has_work():
+            time.sleep(0.01)
+        return streamed, comps
+
+    (streamed, comps), launches = main_path_launches(torch, [eng], run)
     peak = torch.cuda.max_memory_allocated()
     core._decode_verify = verify_step
     after = snap()
@@ -1587,7 +1648,7 @@ def serve_async(torch, eng, prompts, kernels, V):
                 free=(free0, core.pool.n_free()))
 
 
-def async_spec_phase(torch, model, draw_params, cfg, kernels, prompts,
+def async_spec_phase(torch, model, draw_params, cfg, prompts,
                      quant, tol, label, card, dev="cuda"):
     """Phase 10: full-width Qwen3-1.7B through ``AsyncEngine``
     with ``spec_decode=SPEC_K`` and then 0 on the same prompts
@@ -1608,7 +1669,7 @@ def async_spec_phase(torch, model, draw_params, cfg, kernels, prompts,
                           max_running=8, page_size=16, prefill_chunk=128,
                           spec_decode=k, quant=quant, seed=0, device=dev)
         try:
-            run = serve_async(torch, eng, prompts, kernels, V)
+            run = serve_async(torch, eng, prompts, V)
         finally:
             eng.shutdown()
         if k == 0:                  # for the margins of the k=0 tokens
@@ -1864,7 +1925,7 @@ def warm_up(torch, eng, V):
     idle(torch, eng)
 
 
-def http_phase(torch, np, kernels, card, dev="cuda", cfg=None):
+def http_phase(torch, np, card, dev="cuda", cfg=None):
     """Phases 17a and 17b: full-width Qwen3-1.7B in bf16 (phase 5's
     weights, drawn again from seed 0) through ``AsyncEngine`` behind the
     port's HTTP front end, on phase 5's 8 prompts, 32 greedy tokens each.
@@ -1932,12 +1993,14 @@ def http_phase(torch, np, kernels, card, dev="cuda", cfg=None):
     def run_http(host, port, engines, label):
         before = [engine_counts(e) for e in engines]
         torch.cuda.reset_peak_memory_stats()
-        for fn in kernels.values():
-            fn.launches = 0                 # count this path only
-        res = http_clients_apart(host, port, prompts, HTTP_TOKENS)
+
+        def run():
+            res = http_clients_apart(host, port, prompts, HTTP_TOKENS)
+            idle(torch, *engines)
+            return res
+
+        res, launches = main_path_launches(torch, engines, run)
         wall = max(r[3] for r in res)       # the clients start together
-        idle(torch, *engines)
-        launches = {name: fn.launches for name, fn in kernels.items()}
         after = [engine_counts(e) for e in engines]
         check_streams(res, HTTP_TOKENS, V, label)
         steps = {k: sum(int(a[0][k] - b[0][k]) for a, b in zip(after, before))
@@ -2410,8 +2473,7 @@ def moe_phase(torch, np, kernels, card):
     eng = ContinuousServingEngine(model, params, max_len=1024, max_running=8,
                                   page_size=16, prefill_chunk=128, seed=0,
                                   device="cuda")
-    counts, steps, _, _ = serve(torch, eng, prompts, cfg, kernels, "moe",
-                                card)
+    counts, steps, _, _ = serve(torch, eng, prompts, cfg, "moe", card)
     out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if steps <= 0 or counts["paged_decode_attention"] != L * steps:
         fail(f"18a: paged launches {counts['paged_decode_attention']} != "
@@ -4534,7 +4596,7 @@ def main() -> int:
                                   page_size=16, prefill_chunk=128, seed=0,
                                   device="cuda")
     counts, decode_steps, _, tokens_bf16 = serve(
-        torch, eng, prompts, cfg, kernels, "serve", card)
+        torch, eng, prompts, cfg, "serve", card)
     launches = counts["paged_decode_attention"]
     if decode_steps <= 0 or launches != cfg.n_layers * decode_steps:
         fail(f"kernel launches {launches} != {cfg.n_layers} x "
@@ -4590,7 +4652,7 @@ def main() -> int:
           f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
           f"(weights + int8 page pool)")
     counts_q, steps_q, fwd_q, tokens_q4 = serve(
-        torch, eng, prompts, cfg, kernels, "q4", card)
+        torch, eng, prompts, cfg, "q4", card)
     fwd_prefill, fwd_decode = fwd_q["prefill"], fwd_q["decode"]
     fwd = fwd_prefill + fwd_decode
     launches_q4 = counts_q["q4_gemm"]
@@ -4704,7 +4766,7 @@ def main() -> int:
             del params
             gc.collect()
             torch.cuda.empty_cache()
-        runs = async_spec_phase(torch, m_, draw, cfg, kernels, sprompts,
+        runs = async_spec_phase(torch, m_, draw, cfg, sprompts,
                                 quant, tol, label, card)
         spec[label]["async"] = runs
         r2, r0 = runs[SPEC_K], runs[0]
@@ -4785,7 +4847,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     stamp(t_start, "phase 17a/b, HTTP serving at full width")
-    http_runs = http_phase(torch, np, kernels, card)
+    http_runs = http_phase(torch, np, card)
     stamp(t_start, "phase 17c, the fleet CLI on the card")
     fleet_cli_phase(card)
 

@@ -18,7 +18,8 @@ The plain versions they are held against are
 Both wrappers take CUDA tensors only and launch the kernel or raise:
 there is no fallback.  Each has a ``launches`` attribute, a plain
 integer, one per launch, so a run can show that its main path went
-through the kernel.
+through the kernel (a CUDA graph counts at its capture; its replays run
+no Python and count nothing).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ against is :func:`repro_torch.kernels.ref.q4_gemm_ref`.
 :func:`q4_gemm` takes CUDA tensors only and launches the kernel or
 raises: there is no fallback.  Its ``launches`` attribute is a plain
 integer, one per launch, so a run can show that its main path went
-through the kernel.
+through the kernel (a CUDA graph counts at its capture; its replays run
+no Python and count nothing).
 """
 
 from __future__ import annotations

@@ -286,8 +286,10 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     exponents = torch.arange(0, d, 2, dtype=torch.float32,
                              device=x.device) / d
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), -exponents)
+    # theta filled on the device: a host tensor's copy would synchronise,
+    # which a CUDA graph capture refuses
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), -exponents)
     angles = positions[..., None].float() * freqs
     sin = torch.sin(angles)[..., None, :]
     cos = torch.cos(angles)[..., None, :]

@@ -36,6 +36,18 @@ and :meth:`~ModelRunner.verify` runs in a span (``repro_torch.obs.spans``,
 ``runner.prefill`` / ``runner.decode`` / ``runner.verify``) that writes
 its ``runner.*.dispatch_ms`` histogram.
 
+On a single CUDA rank the decode step is a **CUDA graph**
+(:class:`DecodeGraph`): its one shape, ``max_running`` lanes of one
+token, is captured once at construction, and each
+:meth:`~ModelRunner.decode` call copies ``fed`` and ``pos`` into the
+graph's input buffers and replays it, one launch for the thousands of
+operations Python would enqueue one by one.  The graph reads the block
+tables from the cache's device tensor, which :meth:`set_block_tables`
+updates in place, and writes the pool buffers in place, as an eager step
+does.  The CPU, tensor-parallel ranks (``mesh=``) and
+:meth:`~ModelRunner.verify` run eagerly.  ``runner.decode.calls``
+counts the decode calls by ``path`` (``graph`` / ``eager``).
+
 ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) switches on the
 **tensor-parallel mode**, the paper's §3 partition over the ranks of a
 process group (rank ≅ NUMA node): this rank runs a **local model** with
@@ -89,6 +101,69 @@ def resolve_device(device: Any) -> torch.device:
     return dev
 
 
+class DecodeGraph:
+    """One decode step captured as a CUDA graph over persistent inputs.
+
+    ``step(fed, pos)`` is the eager step: it takes the (B, 1) and (B,)
+    int64 device tensors and returns the logits.  Construction runs it
+    :attr:`WARMUP` times on a side stream with every lane idle (``pos``
+    -1: idle lanes write the scratch page only and are fully masked, so
+    no sequence's pages are touched), which builds the kernels and makes
+    the cuBLAS handles before the capture, and then captures it once.
+    :meth:`replay` stages ``fed`` and ``pos`` in pinned host buffers,
+    copies them into the graph's inputs and replays it on the calling
+    thread's current stream.
+
+    A replay runs no Python: the kernel wrappers' ``.launches`` counts
+    move at the capture only, and a replayed step's launches are read
+    from the device trace, by kernel name.
+    """
+
+    #: eager passes before the capture (torch's capture recipe)
+    WARMUP = 3
+
+    def __init__(self, step, batch: int, device: torch.device) -> None:
+        self.device = device
+        with torch.cuda.device(device):
+            self.fed = torch.zeros((batch, 1), dtype=torch.int64,
+                                   device=device)
+            self.pos = torch.full((batch,), -1, dtype=torch.int64,
+                                  device=device)
+            self._fed_host = torch.zeros((batch, 1), dtype=torch.int64,
+                                         pin_memory=True)
+            self._pos_host = torch.full((batch,), -1, dtype=torch.int64,
+                                        pin_memory=True)
+            self._fed_np = self._fed_host.numpy()
+            self._pos_np = self._pos_host.numpy()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    step(self.fed, self.pos)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                #: the graph's output, overwritten by each replay
+                self.logits = step(self.fed, self.pos)
+            #: recorded after each call's copies out of the staging
+            #: buffers, which the next call waits for before it rewrites
+            #: them
+            self._staged = torch.cuda.Event()
+            self._staged.record()
+
+    def replay(self, fed: np.ndarray, pos: np.ndarray) -> torch.Tensor:
+        with torch.cuda.device(self.device):
+            self._staged.synchronize()
+            self._fed_np[...] = fed
+            self._pos_np[...] = pos
+            self.fed.copy_(self._fed_host, non_blocking=True)
+            self.pos.copy_(self._pos_host, non_blocking=True)
+            self._staged.record()
+            self.graph.replay()
+        return self.logits
+
+
 class ModelRunner:
     """``(device state, chunk/batch) -> logits`` over a paged KV cache.
     No scheduling knowledge; see module docstring."""
@@ -129,9 +204,16 @@ class ModelRunner:
         # device completion is owned by whoever synchronises), written
         # by each call's span (obs.spans)
         now = clock.now if clock is not None else time.perf_counter
+        graphed = self.device.type == "cuda" and mesh is None
         h_decode = h_prefill = h_verify = None
         self._c_q4_decode = self._c_q4_prefill = self._c_q4_verify = None
+        self._c_decode_calls = None
         if registry is not None:
+            self._c_decode_calls = registry.counter(
+                "runner.decode.calls",
+                "decode calls by path: replayed from the captured CUDA "
+                "graph or run eagerly").labels(
+                    path="graph" if graphed else "eager")
             h_decode = registry.histogram(
                 "runner.decode.dispatch_ms",
                 "batched decode dispatch wall per call").labels(
@@ -160,6 +242,9 @@ class ModelRunner:
         self.cache = self.local_model.init_cache(
             max_running, max_len, page_size=page_size, n_pages=n_pages,
             kv_dtype=self.quant.kv_dtype, device=self.device)
+        #: the decode step's CUDA graph (module docstring); None: eager
+        self.decode_graph = (DecodeGraph(self._decode_step, max_running,
+                                         self.device) if graphed else None)
 
     # ------------------------------------------------------------------
     # tensor-parallel mode
@@ -241,17 +326,33 @@ class ModelRunner:
             self._c_q4_prefill.inc()
         return logits
 
+    def _decode_step(self, fed: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+        return self.local_model.decode_step(
+            self.params, self.cache, fed, pos, page_size=self.page_size,
+            window_override=self.window_override)[0]
+
     def decode(self, fed: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         """One batched decode step: ``fed`` (max_running, 1) tokens,
         ``pos`` (max_running,) absolute fed-token positions (-1 = idle
-        slot, masked + scratch-paged).  Returns (max_running, 1, V)."""
+        slot, masked + scratch-paged).  Returns (max_running, 1, V).
+
+        The logits are valid until the next ``decode`` call: under the
+        CUDA graph they are the graph's output, which the next replay
+        overwrites in place (prefill chunks, verify steps and table
+        uploads in between leave them be).  ``EngineCore`` samples from
+        them, which synchronises, before it calls again."""
         with self._span_decode:
-            logits, _ = self.local_model.decode_step(
-                self.params, self.cache,
-                torch.from_numpy(np.asarray(fed, np.int64)).to(self.device),
-                torch.from_numpy(np.asarray(pos, np.int64)).to(self.device),
-                page_size=self.page_size,
-                window_override=self.window_override)
+            if self.decode_graph is not None:
+                logits = self.decode_graph.replay(fed, pos)
+            else:
+                logits = self._decode_step(
+                    torch.from_numpy(np.asarray(fed, np.int64)).to(
+                        self.device),
+                    torch.from_numpy(np.asarray(pos, np.int64)).to(
+                        self.device))
+        if self._c_decode_calls is not None:
+            self._c_decode_calls.inc()
         if self._c_q4_decode is not None:
             self._c_q4_decode.inc()
         return logits
